@@ -1,0 +1,141 @@
+"""ZINC-style sparse HOGNN model (port of ``InputEncoderSp``, ``SpModel``
+and ``make_sp_model`` from ``pygho_tpu/models/zinc.py``; NGNN only, f32).
+
+The model takes the datadict of ``hodata.batch_to_sparse_dict`` and returns
+``(num_graphs, num_tasks)`` predictions.  Module attributes carry the JAX
+package's names, so ``weights.load_jax_params`` can map one onto the other.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..backend.segment import segment_reduce
+from ..backend.sptensor import SparseTensor
+from ..device import DeviceLike, resolve_device
+from ..honn import conv as Conv
+from ..honn import tensorop as TensorOp
+from ..honn.utils import MLP, make_linear
+
+
+def make_embedding(num: int, dim: int, *,
+                   generator: torch.Generator) -> nn.Embedding:
+    """Normal init with variance 1 / dim (the default of flax's
+    ``nnx.Embed``)."""
+    emb = nn.Embedding(num, dim)
+    with torch.no_grad():
+        nn.init.normal_(emb.weight, std=1.0 / math.sqrt(dim),
+                        generator=generator)
+    return emb
+
+
+class InputEncoderSp(nn.Module):
+    """Categorical encoders for node / edge / tuple features
+    (reference example/minimal.py:22-34)."""
+
+    def __init__(self, hiddim: int, *, generator: torch.Generator,
+                 num_x: int = 32, num_ea: int = 16, num_tf: int = 16):
+        super().__init__()
+        self.x_encoder = make_embedding(num_x, hiddim, generator=generator)
+        self.ea_encoder = make_embedding(num_ea, hiddim,
+                                         generator=generator)
+        self.tuplefeat_encoder = make_embedding(num_tf, hiddim,
+                                                generator=generator)
+
+    def forward(self, datadict: Dict) -> Dict:
+        datadict = dict(datadict)
+        x = datadict["x"]
+        datadict["x"] = self.x_encoder(x.reshape(x.shape[0], -1)[:, 0])
+        if datadict["A"].values is not None:
+            datadict["A"] = datadict["A"].tuplewiseapply(
+                lambda v: self.ea_encoder(v.reshape(v.shape[0])))
+        datadict["X"] = datadict["X"].tuplewiseapply(
+            lambda v: self.tuplefeat_encoder(v.reshape(v.shape[0])))
+        return datadict
+
+
+class SpModel(nn.Module):
+    """Sparse HOGNN for graph regression (reference
+    example/zinc.py:225-294).  Only the NGNN conv is ported.
+
+    forward(datadict) -> (num_graphs, num_tasks)
+    """
+
+    def __init__(self, conv: str = "NGNN", num_tasks: int = 1,
+                 num_layer: int = 6, hiddim: int = 128, aggr: str = "sum",
+                 npool: str = "sum", lpool: str = "mean",
+                 residual: bool = True, outlayer: int = 2,
+                 mlp: Optional[dict] = None, *,
+                 generator: torch.Generator):
+        super().__init__()
+        if conv != "NGNN":
+            raise NotImplementedError(
+                f"conv {conv!r} is not ported yet; available: ['NGNN']")
+        mlp = dict(mlp or {})
+        mlp.setdefault("numlayer", 1)
+        mlp.setdefault("tailact", True)
+        self.conv_name = conv
+        self.hiddim = hiddim
+        self.num_tasks = num_tasks
+        self.residual = residual
+        self.npool = npool
+
+        self.lin_tupleinit0 = make_linear(hiddim, hiddim, generator=generator)
+        self.lin_tupleinit1 = make_linear(hiddim, hiddim, generator=generator)
+        self.subggnns = nn.ModuleList(
+            [Conv.NGNNConv(hiddim, hiddim, aggr, "SS", mlp,
+                           generator=generator) for _ in range(num_layer)])
+        self.lpool = TensorOp.OpPoolingSubg2D("S", lpool)
+        head = {k: v for k, v in mlp.items()
+                if k not in ("numlayer", "tailact")}
+        self.poolmlp = MLP(hiddim, hiddim, 1, tailact=True,
+                           generator=generator, **head)
+        self.data_encoder = InputEncoderSp(hiddim, generator=generator)
+        self.pred_lin = MLP(hiddim, num_tasks, outlayer, tailact=False,
+                            generator=generator, **head)
+
+    def tupleinit(self, X: SparseTensor, x: torch.Tensor) -> SparseTensor:
+        """X_ij <- W0 x_i * W1 x_j * X_ij (reference
+        example/zinc.py:276-282)."""
+        last = x.shape[0] - 1
+        t0 = self.lin_tupleinit0(x)[torch.clamp(X.indices[0], max=last)]
+        t1 = self.lin_tupleinit1(x)[torch.clamp(X.indices[1], max=last)]
+        return X.tuplewiseapply(lambda v: t0 * t1 * v)
+
+    def encode_init(self, datadict: Dict):
+        """Encoder + tupleinit.  Returns (datadict, A, X)."""
+        datadict = self.data_encoder(datadict)
+        X = self.tupleinit(datadict["X"], datadict["x"])
+        return datadict, datadict["A"], X
+
+    def readout(self, X: SparseTensor, datadict: Dict) -> torch.Tensor:
+        """Subgraph pool + node MLP + graph pool + prediction head."""
+        xs = self.lpool(X)
+        node_mask = torch.arange(xs.shape[0], device=xs.device) \
+            < datadict["num_nodes"]
+        xs = self.poolmlp(xs, node_mask)
+        num_graphs = datadict["graph_mask"].shape[0]
+        h_graph = segment_reduce(xs, datadict["batch"], num_graphs,
+                                 self.npool)
+        return self.pred_lin(h_graph).float()
+
+    def forward(self, datadict: Dict) -> torch.Tensor:
+        datadict, A, X = self.encode_init(datadict)
+        for conv in self.subggnns:
+            tX = conv(A, X, datadict)
+            X = X.add(tX, True) if self.residual else tX
+        return self.readout(X, datadict)
+
+
+def make_sp_model(conv: str = "NGNN", seed: int = 0,
+                  device: DeviceLike = None, **kw) -> SpModel:
+    """Build an :class:`SpModel` with weights drawn from a
+    ``torch.Generator`` seeded with ``seed``, on ``device`` (the CUDA card
+    unless the caller passes ``device="cpu"``)."""
+    dev = resolve_device(device)
+    generator = torch.Generator().manual_seed(seed)
+    return SpModel(conv, generator=generator, **kw).to(dev)
