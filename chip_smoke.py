@@ -8,14 +8,24 @@ Phases, each printing its wall seconds:
 1. device: requires a CUDA card and prints its name and power limit;
 2. build: builds every kernel of the main path from ``pygho_tpu_torch/csrc``
    with ``nvcc`` (all sources at once);
-3. kernels: holds each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it (one 128-graph batch of
-   ``synthetic_zinc("val")``, ``KhopSampler(hop=3)``, D = 128) and on edge
-   cases, and times both;
+3. kernels: holds each kernel (K1's forward, dX and dA roles) against its
+   plain PyTorch version on the card, at the shapes the main path gives it
+   (one 128-graph batch of ``synthetic_zinc("val")``,
+   ``KhopSampler(hop=3)``, D = 128) and on edge cases, holds the
+   ``SpspmmSum`` gradients against autograd through the plain version, and
+   times kernels and plain versions;
 4. serving: serves NGNN-SS 6x128 (weights from a seed) through the port's
    ``SpPredictor`` over three requests, checks that every batch went through
-   the kernels, that the outputs are finite, ordered and repeatable, and
-   that they match the same model run on the CPU with the plain versions.
+   the forward kernel, that the outputs are finite, ordered and repeatable,
+   and that they match the same model run on the CPU with the plain
+   versions;
+5. training: trains NGNN-SS 6x128 (weights from a seed) for ten AdamW steps
+   on shuffled 128-graph batches of ``synthetic_zinc("train")`` through the
+   port's ``make_sparse_steps``, checks that every step launched each K1
+   role six times, that the losses are finite, that a second run gives the
+   same bits, and that the CPU run with the plain versions gives the same
+   losses within ``TRAIN_RTOL``; then prints graphs/s trained and one
+   step's breakdown.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -53,9 +63,18 @@ KERNEL_RTOL = 1e-5
 # tuples, nodes and graphs in another order through six layers, on
 # predictions of order 1
 SERVE_TOL = 1e-4
-# the same graph served twice on the card: only the plain pooling's atomic
-# sums may reorder
+# the same graph served twice on the card, in batches of other sizes, where
+# matrix products of other shapes may take other cuBLAS kernels
 REPEAT_TOL = 1e-5
+# training: NGNN-SS 6x128, AdamW at lr 1e-3 (example/minimal_tpu.py), ten
+# steps on the card and as many on the CPU
+TRAIN_STEPS = 10
+CPU_STEPS = 10
+TRAIN_LR = 1e-3
+# per-step losses, card vs CPU: f32 without TF32 on both, sums in another
+# order through forward, backward and ten AdamW steps (the JAX package's
+# own ten-step differential against the torch reference held 3e-4)
+TRAIN_RTOL = 1e-3
 
 
 def phase(name):
@@ -102,65 +121,95 @@ def time_ms(fn, flush, reps=30, warmup=5):
     return statistics.median(times)
 
 
-def check_spspmm_sum(datas, dev, rng, flush):
-    """K1 at the main path's shapes and on edge cases, against its plain
-    version on the card.  Returns the kernel's line of the report."""
+def k1_bound(tuv, out_rows, D):
+    """The least time of one K1 role on the card: every referenced row of
+    its two operands read once, its index arrays and row pointer read
+    once, every output row written once, against its f32 operations.
+    Returns (ms, "bytes" or "operations", bytes, operations)."""
+    import torch
+
+    k = tuv.shape[1]
+    u_read = int(torch.unique(tuv[1]).numel())
+    v_read = int(torch.unique(tuv[2]).numel())
+    nbytes = (u_read + v_read + out_rows) * D * 4 + k * 2 * 4 \
+        + (out_rows + 1) * 4
+    flops = 2 * k * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def check_k1(datas, dev, rng, flush):
+    """K1's three roles at the main path's shapes and on edge cases,
+    against their plain version on the card, and ``SpspmmSum``'s
+    gradients against autograd through the plain version.  Returns the
+    roles' lines of the report."""
     import numpy as np
     import torch
 
-    from pygho_tpu_torch.hodata.loader import SpDataloader
+    from pygho_tpu_torch.hodata.loader import SpDataloader, backward_orders
     from pygho_tpu_torch.kernels import spspmm_sum as k1
 
-    batch = next(iter(SpDataloader(datas, 128, [KEY])))
-    acd_np = batch[f"{KEY}___acd"]
+    batch = next(iter(SpDataloader(datas, 128, [KEY], backward=True)))
     nt, ne = batch["tupleid"].shape[1], batch["edge_index"].shape[1]
+    n_t, n_e = int(batch["num_tuples"]), int(batch["num_edges"])
     D = 128
-    U = np.zeros((nt, D), np.float32)
-    V = np.zeros((ne, D), np.float32)
-    U[:int(batch["num_tuples"])] = rng.normal(size=(int(batch["num_tuples"]),
-                                                    D))
-    V[:int(batch["num_edges"])] = rng.normal(size=(int(batch["num_edges"]),
-                                                   D))
-    U, V = torch.from_numpy(U).to(dev), torch.from_numpy(V).to(dev)
-    acd = torch.from_numpy(acd_np).to(dev)
-    rowptr = torch.from_numpy(batch[f"{KEY}___rowptr"]).to(dev)
-    k, out_rows = acd.shape[1], rowptr.shape[0] - 1
 
-    def compare(U, V, acd, rowptr):
+    def operand(rows, real):
+        x = np.zeros((rows, D), np.float32)
+        x[:real] = rng.normal(size=(real, D))
+        return torch.from_numpy(x).to(dev)
+
+    U, V, g = operand(nt, n_t), operand(ne, n_e), operand(nt, n_t)
+    t = {name: torch.from_numpy(batch[f"{KEY}___{name}"]).to(dev)
+         for name in ("acd", "rowptr", "acd_dx", "rowptr_dx", "acd_da",
+                      "rowptr_da")}
+    # each role's operands at the main path's shapes: forward
+    # out[a] += U[c] * V[d], dX dU[c] += g[a] * V[d], dA dV[d] += U[c] * g[a]
+    main = {k1.FWD: (U, V, t["acd"], t["rowptr"]),
+            k1.DX: (g, V, t["acd_dx"], t["rowptr_dx"]),
+            k1.DA: (U, g, t["acd_da"], t["rowptr_da"])}
+
+    def compare(role, U, V, tuv, rowptr):
         """Kernel vs plain version: (max abs error, max error over its
         tolerance); raises where an output row with no triples is not
         0."""
         n = rowptr.shape[0] - 1
-        out = k1.spspmm_sum(U, V, acd, rowptr)
-        ref = k1.spspmm_sum_plain(U, V, acd, n)
-        mag = k1.spspmm_sum_plain(U.abs(), V.abs(), acd, n)
+        out = k1.contract(role, U, V, tuv, rowptr)
+        ref = k1.contract_plain(U, V, tuv, n)
+        mag = k1.contract_plain(U.abs(), V.abs(), tuv, n)
         sync()
         if out.numel() == 0:
             return 0.0, 0.0
         empty = (rowptr[1:] == rowptr[:-1])
         if bool((out[empty] != 0).any()):
-            raise AssertionError("K1 wrote a non-zero empty row")
+            raise AssertionError(f"{role.NAME} wrote a non-zero empty row")
         diff = (out - ref).abs()
         return (float(diff.max()),
                 float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max()))
 
-    err, ratio = compare(U, V, acd, rowptr)
-    print(f"K1 main shape: {k} triples, U {tuple(U.shape)}, "
-          f"V {tuple(V.shape)}, out {(out_rows, D)}; "
-          f"max abs err {err:.3e}, {ratio:.3f} of the tolerance "
-          f"{KERNEL_RTOL:g} * sum |terms|")
-    if not ratio <= 1.0:
-        raise AssertionError(f"K1 disagrees with its plain version: {err}")
+    errs = {}
+    for role, args in main.items():
+        err, ratio = compare(role, *args)
+        errs[role] = err
+        print(f"{role.NAME} main shape: {args[2].shape[1]} triples, "
+              f"operands {tuple(args[0].shape)} and {tuple(args[1].shape)}, "
+              f"out {(args[3].shape[0] - 1, D)}; max abs err {err:.3e}, "
+              f"{ratio:.3f} of the tolerance {KERNEL_RTOL:g} * sum |terms|")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{role.NAME} disagrees with its plain "
+                                 f"version: {err}")
 
-    # edge cases: empty rows, one row with many triples, a padded tail,
-    # D = 16, a D that is not a multiple of 4 and an unaligned U (both
-    # take the scalar loop), no triples at all
-    def case(D, rows, u_rows, v_rows, out_rows, misalign=False):
-        a = np.sort(rows).astype(np.int64)
-        acd = np.stack([a, rng.integers(0, u_rows, a.size),
-                        rng.integers(0, v_rows, a.size)]).astype(np.int32)
+    # edge cases, for every role: empty rows, one row with many triples, a
+    # padded tail, D = 16, a D that is not a multiple of 4 and an
+    # unaligned left operand (both take the scalar loop), no triples; and
+    # the backward orders of a forward case, as the loader builds them
+    def case(role, D, rows, u_rows, v_rows, out_rows, misalign=False):
+        t_ = np.sort(rows).astype(np.int64)
+        tuv = np.stack([t_, rng.integers(0, u_rows, t_.size),
+                        rng.integers(0, v_rows, t_.size)]).astype(np.int32)
         rp = np.zeros(out_rows + 1, np.int32)
-        rp[1:] = np.cumsum(np.bincount(a, minlength=out_rows))
+        rp[1:] = np.cumsum(np.bincount(t_, minlength=out_rows))
         Ut = torch.from_numpy(rng.normal(size=(u_rows, D))
                               .astype(np.float32)).to(dev)
         if misalign:
@@ -168,7 +217,7 @@ def check_spspmm_sum(datas, dev, rng, flush):
             Ut = flat.view(u_rows, D).copy_(Ut)
         Vt = torch.from_numpy(rng.normal(size=(v_rows, D))
                               .astype(np.float32)).to(dev)
-        return compare(Ut, Vt, torch.from_numpy(acd).to(dev),
+        return compare(role, Ut, Vt, torch.from_numpy(tuv).to(dev),
                        torch.from_numpy(rp).to(dev))
 
     heavy = np.concatenate([np.full(2000, 5), rng.integers(0, 900, 3000)])
@@ -181,49 +230,97 @@ def check_spspmm_sum(datas, dev, rng, flush):
                                              True),
         "no triples": (128, np.zeros(0, np.int64), 10, 10, 64),
     }
-    for name, args in cases.items():
-        e, r = case(*args)
-        print(f"K1 edge case {name}: max abs err {e:.3e}, {r:.3f} of the "
-              f"tolerance")
+    for role in k1.ROLES:
+        for name, args in cases.items():
+            e, r = case(role, *args)
+            print(f"{role.NAME} edge case {name}: max abs err {e:.3e}, "
+                  f"{r:.3f} of the tolerance")
+            if not r <= 1.0:
+                raise AssertionError(f"{role.NAME} edge case {name} "
+                                     f"disagrees: {e}")
+    # the heavy forward case's backward orders: a 2,000-triple forward row
+    # spreads over the backward roles' rows
+    a = np.sort(heavy)
+    acd = np.stack([a, rng.integers(0, 500, a.size),
+                    rng.integers(0, 400, a.size)])
+    Xc = torch.from_numpy(rng.normal(size=(500, D)).astype(np.float32)) \
+        .to(dev)
+    Ac = torch.from_numpy(rng.normal(size=(400, D)).astype(np.float32)) \
+        .to(dev)
+    gc = torch.from_numpy(rng.normal(size=(1024, D)).astype(np.float32)) \
+        .to(dev)
+    orders = {r: [torch.from_numpy(x).to(dev) for x in v]
+              for r, v in backward_orders(acd, 500, 400).items()}
+    for role, args in ((k1.DX, (gc, Ac, *orders["dx"])),
+                       (k1.DA, (Xc, gc, *orders["da"]))):
+        e, r = compare(role, *args)
+        print(f"{role.NAME} edge case backward orders of the heavy case: "
+              f"max abs err {e:.3e}, {r:.3f} of the tolerance")
         if not r <= 1.0:
-            raise AssertionError(f"K1 edge case {name} disagrees: {e}")
+            raise AssertionError(f"{role.NAME} on backward orders: {e}")
 
-    ms = time_ms(lambda: k1.spspmm_sum(U, V, acd, rowptr), flush)
-    plain_ms = time_ms(lambda: k1.spspmm_sum_plain(U, V, acd, out_rows),
-                       flush)
-    # inputs left in L2: the card first spins in place (no memory
-    # traffic), so the launch is queued before the start event is reached
-    # and the time is the kernel's, not the host's
-    warm_ms = time_ms(lambda: k1.spspmm_sum(U, V, acd, rowptr),
-                      lambda: torch.cuda._sleep(1_000_000))
-    # host cost of one wrapper call: checks, ctypes call, enqueue
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(100):
-        k1.spspmm_sum(U, V, acd, rowptr)
-    host_us = (time.perf_counter() - t0) / 100 * 1e6
-    sync()
-    # least traffic: every referenced row of U and V read once, c, d and
-    # rowptr read once, every output row written once
-    u_read = int(torch.unique(acd[1]).numel())
-    v_read = int(torch.unique(acd[2]).numel())
-    nbytes = (u_read + v_read + out_rows) * D * 4 + k * 2 * 4 \
-        + (out_rows + 1) * 4
-    flops = 2 * k * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    print(f"K1 timing (L2 flushed before each launch, median of 30): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, {flops} "
-          f"f32 operations at 67 TFLOP/s); kernel with its inputs left "
-          f"in L2 {warm_ms:.4f} ms; host time of one wrapper call "
-          f"{host_us:.1f} us")
-    return {"name": k1.NAME, "route": "cuda", "source": k1.SOURCE,
-            "replaces": k1.REPLACES, "launches": None,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+    # SpspmmSum's gradients on the card against autograd through the
+    # plain version, for a random cotangent W
+    W = operand(nt, n_t)
+    bwd = (t["acd_dx"], t["rowptr_dx"], t["acd_da"], t["rowptr_da"])
+    Uk, Vk = U.clone().requires_grad_(), V.clone().requires_grad_()
+    (k1.SpspmmSum.apply(Uk, Vk, t["acd"], t["rowptr"], bwd) * W) \
+        .sum().backward()
+    Up, Vp = U.clone().requires_grad_(), V.clone().requires_grad_()
+    (k1.contract_plain(Up, Vp, t["acd"], nt) * W).sum().backward()
+    with torch.no_grad():
+        mags = (k1.contract_plain(W.abs(), V.abs(), t["acd_dx"], nt),
+                k1.contract_plain(U.abs(), W.abs(), t["acd_da"], ne))
+    for what, got, ref, mag in (("grad_U", Uk.grad, Up.grad, mags[0]),
+                                ("grad_V", Vk.grad, Vp.grad, mags[1])):
+        diff = (got - ref).abs()
+        ratio = float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max())
+        print(f"SpspmmSum {what} vs autograd through the plain version: "
+              f"max abs err {float(diff.max()):.3e}, {ratio:.3f} of the "
+              f"tolerance")
+        if not ratio <= 1.0:
+            raise AssertionError(f"SpspmmSum {what} disagrees")
+
+    report = []
+    for role, args in main.items():
+        tuv, rowptr = args[2], args[3]
+        out_rows = rowptr.shape[0] - 1
+        ms = time_ms(lambda: k1.contract(role, *args), flush)
+        # the plain version with atomic index_add_ (deterministic
+        # algorithms off), and in the parity mode (sorted index_add_)
+        torch.use_deterministic_algorithms(False)
+        plain_ms = time_ms(lambda: k1.contract_plain(args[0], args[1], tuv,
+                                                     out_rows), flush)
+        torch.use_deterministic_algorithms(True)
+        plain_det_ms = time_ms(
+            lambda: k1.contract_plain(args[0], args[1], tuv, out_rows),
+            flush)
+        # inputs left in L2: the card first spins in place (no memory
+        # traffic), so the launch is queued before the start event is
+        # reached and the time is the kernel's, not the host's
+        warm_ms = time_ms(lambda: k1.contract(role, *args),
+                          lambda: torch.cuda._sleep(1_000_000))
+        # host cost of one wrapper call: checks, ctypes call, enqueue
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            k1.contract(role, *args)
+        host_us = (time.perf_counter() - t0) / 100 * 1e6
+        sync()
+        bound_ms, bound_by, nbytes, flops = k1_bound(tuv, out_rows, D)
+        print(f"{role.NAME} timing (L2 flushed before each launch, median "
+              f"of 30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(deterministic plain {plain_det_ms:.4f} ms); bound "
+              f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, {flops} "
+              f"f32 operations at 67 TFLOP/s); kernel with its inputs "
+              f"left in L2 {warm_ms:.4f} ms; host time of one wrapper call "
+              f"{host_us:.1f} us")
+        report.append({"name": role.NAME, "route": "cuda",
+                       "source": role.SOURCE, "replaces": role.REPLACES,
+                       "launches": None, "max_abs_err": errs[role],
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": None})
+    return report
 
 
 def calibrate_batchnorm(model, predictor, datas):
@@ -286,7 +383,8 @@ def serve(graphs, rng, dev):
     print(f"served {[len(r) for r in requests]} graphs in {n_batches} "
           f"batches, {[f'{w:.3f}' for w in walls]} s; kernel launches "
           f"{launches}")
-    expected = {KERNELS[0].NAME: 6 * n_batches}
+    expected = {mod.NAME: 0 for mod in KERNELS}
+    expected[KERNELS[0].NAME] = 6 * n_batches
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
 
@@ -364,6 +462,164 @@ def breakdown(model, predictor, datas, dev, reps=5):
           f"wall / {dev_ms:.3f} ms between CUDA events")
 
 
+def train_run(device, batches, steps, per_step=None):
+    """NGNN-SS 6x128 from seed 0, ``steps`` AdamW steps at lr 1e-3 on
+    ``batches`` through the port's ``make_sparse_steps``.  Returns the
+    per-step losses and the model.  ``per_step(i)`` runs after each
+    step."""
+    from pygho_tpu_torch.models import (make_optimizer, make_sp_model,
+                                        make_sparse_steps)
+
+    model = make_sp_model("NGNN", num_layer=6, hiddim=128, mlp=dict(MLPD),
+                          seed=0, device=device)
+    model.train()
+    opt = make_optimizer(model, TRAIN_LR)
+    train_step, _ = make_sparse_steps()
+    losses = []
+    for i, batch in enumerate(batches[:steps]):
+        losses.append(train_step(model, opt, batch))
+        if per_step is not None:
+            per_step(i)
+    return [float(x) for x in losses], model
+
+
+def training(card, dev):
+    """NGNN-SS 6x128 trains on the card: launch counts per step, finite
+    losses, two runs bitwise identical, the CPU run's losses within
+    TRAIN_RTOL; then graphs/s trained and a per-step breakdown.  Returns
+    the launches of the first training run."""
+    import torch
+
+    from pygho_tpu_torch.hodata import (KhopSampler, SpDataloader,
+                                        Sppretransform, synthetic_zinc)
+    from pygho_tpu_torch.kernels import KERNELS
+
+    t0 = time.perf_counter()
+    pre = Sppretransform(partial(KhopSampler, hop=3), [""], [KEY])
+    datas = [pre(g) for g in synthetic_zinc("train", seed=SEED)]
+    loader = SpDataloader(datas, 128, [KEY], shuffle=True, drop_last=True,
+                          seed=0, backward=True)
+    batches = []
+    while len(batches) < TRAIN_STEPS:      # 8 batches an epoch
+        batches.extend(loader)
+    batches = batches[:TRAIN_STEPS]
+    print(f"training data: {len(datas)} graphs of synthetic_zinc(\"train\")"
+          f", {TRAIN_STEPS} shuffled batches of 128 (loader seed 0), "
+          f"preprocessed and collated in {time.perf_counter() - t0:.3f} s")
+
+    # the main path: counts to 0 just before, read after every step
+    counts = []
+
+    def read(_):
+        counts.append({mod.NAME: mod.launches for mod in KERNELS})
+
+    for mod in KERNELS:
+        mod.launches = 0
+    t0 = time.perf_counter()
+    losses, model = train_run(dev, batches, TRAIN_STEPS, read)
+    sync()
+    run_s = time.perf_counter() - t0
+    launches = dict(counts[-1])
+    per_step = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in c}
+                for i, c in enumerate(counts)]
+    print(f"trained {TRAIN_STEPS} steps in {run_s:.3f} s; losses "
+          f"{[f'{x:.6f}' for x in losses]}; kernel launches {launches}")
+    want = {mod.NAME: 6 for mod in KERNELS}
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"step {i} launched {c}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+
+    again, model2 = train_run(dev, batches, TRAIN_STEPS)
+    state, state2 = model.state_dict(), model2.state_dict()
+    same = again == losses and all(torch.equal(state[k], state2[k])
+                                   for k in state)
+    print(f"second run from the same seed: losses and all {len(state)} "
+          f"parameters and buffers bitwise identical: {same}")
+    if not same:
+        raise AssertionError(f"two runs differ: {losses} vs {again}")
+
+    t0 = time.perf_counter()
+    cpu_losses, _ = train_run("cpu", batches, CPU_STEPS)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    print(f"card vs CPU (plain versions), {CPU_STEPS} steps in "
+          f"{time.perf_counter() - t0:.3f} s on the CPU: max relative loss "
+          f"difference {rel:.3e} (tolerance {TRAIN_RTOL:g}); CPU losses "
+          f"{[f'{x:.6f}' for x in cpu_losses]}")
+    if not rel <= TRAIN_RTOL:
+        raise AssertionError(f"card and CPU losses differ by {rel}")
+
+    train_timing(card, dev, datas)
+    return launches
+
+
+def train_timing(card, dev, datas, reps=8):
+    """Prints graphs/s trained over one epoch of the loader (collation included,
+    one sync at the end), then one step's breakdown: host collation, the
+    copy to the card, forward+backward and the optimizer step (each
+    synchronised; medians over ``reps`` steps), and forward+backward
+    between CUDA events."""
+    import torch
+
+    from pygho_tpu_torch.hodata import SpDataloader
+    from pygho_tpu_torch.hodata.sp_data import batch_to_sparse_dict
+    from pygho_tpu_torch.models import (make_optimizer, make_sp_model,
+                                        make_sparse_steps, masked_l1_loss)
+
+    model = make_sp_model("NGNN", num_layer=6, hiddim=128, mlp=dict(MLPD),
+                          seed=0, device=dev)
+    model.train()
+    opt = make_optimizer(model, TRAIN_LR)
+    train_step, _ = make_sparse_steps()
+    loader = SpDataloader(datas, 128, [KEY], shuffle=True, drop_last=True,
+                          seed=1, backward=True)
+    for batch in loader:                  # warm up: buckets, allocator
+        train_step(model, opt, batch)
+    sync()
+    t0 = time.perf_counter()
+    n = 0
+    for batch in loader:
+        train_step(model, opt, batch)
+        n += 128
+    sync()
+    gps = n / (time.perf_counter() - t0)
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    parts = {"collation": [], "copy": [], "fwd+bwd": [], "optimizer": []}
+    it = iter(loader)
+    for _ in range(reps):
+        batch, s = timed(lambda: next(it))
+        parts["collation"].append(s)
+        dd, s = timed(lambda: batch_to_sparse_dict(batch, ("",), dev))
+        parts["copy"].append(s)
+
+        def fwd_bwd():
+            loss = masked_l1_loss(model(dd), dd["y"], dd["graph_mask"])
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+
+        _, s = timed(fwd_bwd)
+        parts["fwd+bwd"].append(s)
+        _, s = timed(opt.step)
+        parts["optimizer"].append(s)
+    dev_ms = time_ms(fwd_bwd, lambda: None, reps=reps, warmup=1)
+    med = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
+    print(f"NGNN-SS 6x128 training on {card}: {gps:.1f} graphs/s trained "
+          f"(one epoch of 8 steps, collation included)")
+    print(f"one 128-graph training step (median of {reps}): host "
+          f"collation {med['collation']:.3f} ms, copy to the card "
+          f"{med['copy']:.3f} ms, forward+backward {med['fwd+bwd']:.3f} ms "
+          f"host wall / {dev_ms:.3f} ms between CUDA events, optimizer "
+          f"{med['optimizer']:.3f} ms; sum {sum(med.values()):.3f} ms")
+
+
 def main():
     t_all = time.perf_counter()
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -373,6 +629,10 @@ def main():
     sys.path.insert(0, str(REPO))
     import numpy as np
     import torch
+
+    # before the first CUDA call: the package sets the cuBLAS workspace
+    # that the parity mode's deterministic algorithms need
+    import pygho_tpu_torch  # noqa: F401
 
     t0 = phase("device")
     if not torch.cuda.is_available():
@@ -389,7 +649,7 @@ def main():
     from pygho_tpu_torch.models.serve import set_parity_numerics
 
     t0 = phase("build")
-    names = [Path(mod.SOURCE).stem for mod in KERNELS]
+    names = sorted({Path(mod.SOURCE).stem for mod in KERNELS})
     secs = _build.build(names)
     for name in names:
         print(f"built {name} in {secs[name]:.2f} s")
@@ -409,7 +669,7 @@ def main():
     t0 = phase("kernels")
     pre = Sppretransform(partial(KhopSampler, hop=3), [""], [KEY])
     datas = [pre(g) for g in graphs]
-    report = [check_spspmm_sum(datas, dev, rng, flush_buf.zero_)]
+    report = check_k1(datas, dev, rng, flush_buf.zero_)
     done("kernels", t0)
 
     t0 = phase("serving")
@@ -419,8 +679,15 @@ def main():
           f"from preprocessed graphs")
     done("serving", t0)
 
+    t0 = phase("training")
+    train_launches = training(card, dev)
+    done("training", t0)
+
+    # launches: the serving run's and the first training run's, each
+    # counted from 0 just before its path and read just after
     for line in report:
-        line["launches"] = launches[line["name"]]
+        line["launches"] = launches[line["name"]] \
+            + train_launches[line["name"]]
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": report}))

@@ -7,10 +7,14 @@ Semantics kept from the JAX package:
 - segment ids outside ``[0, num_segments)`` (the ``PAD_INDEX`` padding
   convention) are dropped.
 
-This is plain PyTorch.  On the CPU ``index_add_`` sums in index order;
-on CUDA it uses atomics, so sums over many rows may differ in the last
-bits from run to run.  The hot contraction of the main path does not go
-through here: it has its own deterministic kernel
+This is plain PyTorch, as the JAX package's segment sums are XLA and not
+Pallas.  On the CPU ``index_add_`` sums in index order.  On CUDA it uses
+atomics, unless deterministic algorithms are on: the parity mode
+(``models.serve.set_parity_numerics``), which the predictor and the
+training steps set, turns them on, and ``index_add_`` then sums in a
+fixed order, so results are the same from run to run, as the JAX
+package's are.  The hot contraction of the main path does not go
+through here: it has its own kernels, deterministic in every role
 (``kernels/spspmm_sum.py``).
 """
 

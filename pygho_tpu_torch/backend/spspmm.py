@@ -4,27 +4,36 @@ sum case of ``spspmm`` in ``pygho_tpu/backend/spspmm.py``).
     out[a] = sum over (a, c, d) of A.values[c] * B.values[d]
 
 onto the target pattern ``tarX``.  The hot loop is the K1 kernel
-(``kernels/spspmm_sum.py``); it needs the triples with the padding
-stripped and their row pointer, which the loader builds on the host.
+(``kernels/spspmm_sum.py``), reached through its autograd Function
+``SpspmmSum``, so a gradient flows through the kernel's dX and dA roles
+on every device.  It needs the triples with the padding stripped and their
+row pointer, and for a backward the triples in the backward roles' orders,
+all of which the loader builds on the host.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..kernels.spspmm_sum import spspmm_sum
+from ..kernels.spspmm_sum import BackwardOrders, SpspmmSum
 from .sptensor import SparseTensor
 
 
 def spspmm(A: SparseTensor, dim1: int, B: SparseTensor, dim2: int,
            aggr: str = "sum", acd: torch.Tensor = None,
            rowptr: torch.Tensor = None,
-           tarX: SparseTensor = None) -> SparseTensor:
+           tarX: SparseTensor = None,
+           bwd: Optional[BackwardOrders] = None) -> SparseTensor:
     """Contract ``dim1`` of ``A`` with ``dim2`` of ``B`` onto ``tarX``.
 
     ``acd``: int32 ``(3, k)`` real triples sorted by target row;
     ``rowptr``: their int32 row pointer over ``tarX``'s padded rows.
-    Only the sum of two ``(rows, D)`` value arrays is ported.
+    ``bwd``: the backward roles' triples and row pointers
+    ``(acd_dx, rowptr_dx, acd_da, rowptr_da)``; a backward through the
+    result raises without them.  Only the sum of two ``(rows, D)`` value
+    arrays is ported.
     """
     if aggr != "sum":
         raise NotImplementedError(f"spspmm aggr {aggr!r} is not ported yet")
@@ -38,7 +47,7 @@ def spspmm(A: SparseTensor, dim1: int, B: SparseTensor, dim2: int,
     if rowptr.shape[0] != tarX.nnz_pad + 1:
         raise ValueError(f"rowptr spans {rowptr.shape[0] - 1} rows, tarX "
                          f"has {tarX.nnz_pad}")
-    vals = spspmm_sum(A.values, B.values, acd, rowptr)
+    vals = SpspmmSum.apply(A.values, B.values, acd, rowptr, bwd)
     keep_shape = (tuple(A.sparse_shape[:dim1])
                   + tuple(A.sparse_shape[dim1 + 1:])
                   + tuple(B.sparse_shape[:dim2])

@@ -3,14 +3,15 @@
 
 The loader collates in the calling thread: no collation threads and no
 device prefetch.  In place of the TPU kernel plans (``add_spspmm_plans``)
-it gives each precompute key what the CUDA kernel reads
-(:func:`add_rowptr`): the real ``acd`` triples and their row pointer.
+it gives each precompute key what the CUDA kernels read
+(:func:`add_rowptr`): the real ``acd`` triples and their row pointer, and
+for training the same triples in the orders of the two backward roles.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Iterator, List, Sequence
+from typing import Any, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -37,12 +38,48 @@ def Sppretransform(tuplesamplers, annotate: Sequence[str] = ("",),
                              annotate=tuple(annotate), keys=tuple(keys))
 
 
-def add_rowptr(batch: Dict[str, Any], keys: Sequence[str]) -> None:
+def row_pointer(t: np.ndarray, rows: int) -> np.ndarray:
+    """int32 CSR row pointer of the sorted row ids ``t`` over ``rows``."""
+    rowptr = np.zeros(rows + 1, dtype=np.int64)
+    np.cumsum(np.bincount(t, minlength=rows), out=rowptr[1:])
+    return rowptr.astype(np.int32)
+
+
+def backward_orders(acd: np.ndarray, c_rows: int, d_rows: int
+                    ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
+    """The triples of K1's two backward roles and their row pointers,
+    from real ``acd`` triples sorted by ``a``:
+
+    - ``"dx"``: ``(c, a, d)`` stably sorted by ``c``, row pointer over
+      the ``c_rows`` rows of the ``c`` operand;
+    - ``"da"``: ``(d, c, a)`` stably sorted by ``d``, row pointer over
+      the ``d_rows`` rows of the ``d`` operand.
+
+    The counterpart of the dX and dA plans of the JAX package
+    (``build_spspmm_strip_plans``).  The stable sort keeps each output
+    row's triples in ``a`` order, so the summation order is fixed."""
+    a, c, d = np.asarray(acd, dtype=np.int64)
+    out = {}
+    for role, (t, u, v), rows in (("dx", (c, a, d), c_rows),
+                                  ("da", (d, c, a), d_rows)):
+        order = np.argsort(t, kind="stable")
+        tuv = np.stack([t[order], u[order], v[order]]).astype(np.int32)
+        out[role] = (tuv, row_pointer(tuv[0], rows))
+    return out
+
+
+def add_rowptr(batch: Dict[str, Any], keys: Sequence[str],
+               backward: bool = False) -> None:
     """For every precompute key of a collated batch (in place): strip the
     ``PAD_INDEX`` triples from ``batch["<key>___acd"]`` (now int32
     ``(3, k)``), check that ``a`` ascends and that every index is in
     range, and store the int32 row pointer of ``a`` over the padded target
     rows as ``batch["<key>___rowptr"]``.
+
+    With ``backward=True`` also store the two backward roles' triples
+    and row pointers (:func:`backward_orders`) as ``<key>___acd_dx``,
+    ``<key>___rowptr_dx``, ``<key>___acd_da`` and ``<key>___rowptr_da``:
+    training needs them, serving does not.
 
     ``filterind`` sorts each graph's triples by ``a`` and block-diagonal
     collation keeps the order across graphs; the check makes a batch that
@@ -69,34 +106,55 @@ def add_rowptr(batch: Dict[str, Any], keys: Sequence[str]) -> None:
                 if idx.min() < 0 or idx.max() >= rows:
                     raise ValueError(f"acd of {key!r}: {name} out of range "
                                      f"[0, {rows})")
-        rowptr = np.zeros(out_rows + 1, dtype=np.int64)
-        np.cumsum(np.bincount(a, minlength=out_rows), out=rowptr[1:])
         batch[f"{key}{KEYSEP}acd"] = np.ascontiguousarray(acd,
                                                           dtype=np.int32)
-        batch[f"{key}{KEYSEP}rowptr"] = rowptr.astype(np.int32)
+        batch[f"{key}{KEYSEP}rowptr"] = row_pointer(a, out_rows)
+        if backward:
+            for role, (tuv, rowptr) in backward_orders(
+                    acd, rows_of(op1), rows_of(op2)).items():
+                batch[f"{key}{KEYSEP}acd_{role}"] = tuv
+                batch[f"{key}{KEYSEP}rowptr_{role}"] = rowptr
 
 
 class SpDataloader:
-    """Sparse batches, in dataset order, collated in the calling thread
-    (reference Wrapper.py:101-132).  Yields numpy dicts with the kernels'
-    row pointers added; ``batch_to_sparse_dict`` moves one onto a
-    device.  The last batch is padded with empty graphs to
-    ``batch_size``."""
+    """Sparse batches collated in the calling thread (reference
+    Wrapper.py:101-132).  Yields numpy dicts with the kernels' row
+    pointers added; ``batch_to_sparse_dict`` moves one onto a device.
+    Every batch is padded with empty graphs to ``batch_size``.
+
+    ``shuffle``, ``drop_last`` and ``seed`` have the JAX loader's
+    semantics: one ``numpy.random.default_rng(seed)`` per loader shuffles
+    the dataset order anew each epoch, and ``drop_last`` drops the last
+    partial batch.  ``backward=True`` adds the backward roles' triples
+    (:func:`add_rowptr`), which a training step needs."""
 
     def __init__(self, dataset: List[Dict[str, Any]], batch_size: int,
-                 keys: Sequence[str] = ("",)):
+                 keys: Sequence[str] = ("",), shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0,
+                 backward: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.keys = tuple(keys)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.default_rng(seed)
+        self.backward = backward
         self.buckets: Dict[str, int] = Buckets()
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(idx)
         bs = self.batch_size
-        for s in range(0, len(self.dataset), bs):
-            batch = collate_sparse(self.dataset[s:s + bs], self.keys,
-                                   num_graphs=bs, buckets=self.buckets)
-            add_rowptr(batch, self.keys)
+        stop = (len(idx) // bs) * bs if self.drop_last else len(idx)
+        for s in range(0, stop, bs):
+            batch = collate_sparse([self.dataset[i] for i in idx[s:s + bs]],
+                                   self.keys, num_graphs=bs,
+                                   buckets=self.buckets)
+            add_rowptr(batch, self.keys, self.backward)
             yield batch

@@ -5,7 +5,9 @@ The precompute-key protocol is kept: each OpMessagePassing module declares
 ``"{op0}___{op1}___{dim1}___{op2}___{dim2}"``; ``parse_precomputekey``
 collects the keys of a built model; the data pipeline stores the key's
 triples and row pointer in the datadict (``<key>___acd``,
-``<key>___rowptr``).  A missing key is an error that points at
+``<key>___rowptr``), and for training those of the backward roles
+(``<key>___acd_dx``, ``<key>___rowptr_dx``, ``<key>___acd_da``,
+``<key>___rowptr_da``).  A missing key is an error that points at
 preprocessing.
 """
 
@@ -56,10 +58,14 @@ class OpMessagePassing(nn.Module):
 
     def forward(self, A: SparseTensor, B: SparseTensor, datadict: Dict,
                 tarX: SparseTensor) -> SparseTensor:
+        key = self.precomputekey
+        bwd = tuple(datadict.get(f"{key}{KEYSEP}{what}") for what in
+                    ("acd_dx", "rowptr_dx", "acd_da", "rowptr_da"))
         return spspmm(A, self.dim1, B, self.dim2, self.aggr,
-                      acd=_fetch(datadict, self.precomputekey, "acd"),
-                      rowptr=_fetch(datadict, self.precomputekey, "rowptr"),
-                      tarX=tarX)
+                      acd=_fetch(datadict, key, "acd"),
+                      rowptr=_fetch(datadict, key, "rowptr"),
+                      tarX=tarX,
+                      bwd=None if any(t is None for t in bwd) else bwd)
 
 
 class OpMessagePassingOnSubg2D(OpMessagePassing):

@@ -10,6 +10,7 @@ input order.  Host precompute runs in the calling process
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
@@ -21,11 +22,37 @@ from ..hodata.loader import Buckets, SpDataloader, Sppretransform
 from ..hodata.sp_data import batch_to_sparse_dict
 
 
+# the cuBLAS workspace settings under which PyTorch lets deterministic
+# algorithms use cuBLAS
+DETERMINISTIC_CUBLAS = (":4096:8", ":16:8")
+
+
 def set_parity_numerics() -> None:
-    """f32 matrix products and convolutions without TF32: the parity
-    mode, which stands in for the JAX package's ``exact=True``."""
+    """The parity mode, which stands in for the JAX package's
+    ``exact=True`` and its bitwise reproducibility: f32 matrix products
+    and convolutions without TF32, and deterministic algorithms only.
+
+    Under ``torch.use_deterministic_algorithms(True)`` the library sums
+    that use atomics on CUDA (``index_add_`` in ``segment_reduce``, the
+    backward of index gathers and of embedding lookups) switch to their
+    sorted versions, and an operation that has none raises: determinism
+    cannot switch off quietly on some path.  The K1 kernels need no atomics
+    in any role.  PyTorch allows cuBLAS in this mode only with
+    ``CUBLAS_WORKSPACE_CONFIG`` set to one of :data:`DETERMINISTIC_CUBLAS`
+    before the first cuBLAS call; importing ``pygho_tpu_torch`` sets it
+    where the environment does not, and this raises where it holds
+    another value.  Outputs are written in full by every kernel of the
+    port, so uninitialised memory is not filled first."""
+    cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if cfg not in DETERMINISTIC_CUBLAS:
+        raise RuntimeError(
+            f"CUBLAS_WORKSPACE_CONFIG is {cfg!r}; deterministic cuBLAS "
+            f"needs one of {DETERMINISTIC_CUBLAS}, set before the first "
+            f"CUDA call")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
 
 
 class SpPredictor:

@@ -1,0 +1,179 @@
+"""Where a training step of the PyTorch / CUDA port goes, on one CUDA card.
+
+    python3 scripts/trace_train_gpu.py [--steps 5] [--out trace_out]
+
+Trains NGNN-SS 6x128 (weights from seed 0, AdamW at lr 1e-3) on 128-graph
+batches of ``synthetic_zinc("train")`` through ``make_sparse_steps``, and
+prints:
+
+1. the card's name and power limit;
+2. the wall time of a step in the parity mode (deterministic algorithms)
+   and with deterministic algorithms off, in turns (on, off, off, on),
+   each the median over ``--steps`` synchronised steps on pre-collated
+   batches; and the same for one eval-mode forward of a batch already on
+   the card, as serving runs it;
+3. a ``torch.profiler`` trace of ``--steps`` parity-mode steps: the
+   operators and kernels that take the most device time, the device's
+   busy share of the traced wall time, and the K1 kernels' share.
+   The table and the Chrome trace go to ``--out``.
+
+It imports nothing of JAX and needs a card.
+"""
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from functools import partial
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import pygho_tpu_torch  # noqa: E402,F401  (sets the cuBLAS workspace)
+import torch  # noqa: E402
+
+KEY = "X___X___1___A___0"
+MLPD = {"norm": "bn", "act": "silu", "dp": 0.0}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--out", default="trace_out")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this script measures a card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    print(f"card: {card}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pygho_tpu_torch.hodata import (KhopSampler, SpDataloader,
+                                        Sppretransform, synthetic_zinc)
+    from pygho_tpu_torch.models import (make_optimizer, make_sp_model,
+                                        make_sparse_steps)
+
+    pre = Sppretransform(partial(KhopSampler, hop=3), [""], [KEY])
+    datas = [pre(g) for g in synthetic_zinc("train")]
+    batches = list(SpDataloader(datas, 128, [KEY], shuffle=True,
+                                drop_last=True, seed=0, backward=True))
+    model = make_sp_model("NGNN", num_layer=6, hiddim=128, mlp=dict(MLPD),
+                          seed=0, device="cuda")
+    model.train()
+    opt = make_optimizer(model, 1e-3)
+    train_step, _ = make_sparse_steps()
+
+    def steps(n):
+        """Median wall ms of n synchronised steps."""
+        times = []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(model, opt, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    steps(3)                                    # warm up
+    ab = []
+    for det in (True, False, False, True):
+        torch.use_deterministic_algorithms(det)
+        ab.append((det, steps(args.steps)))
+    # the same for one eval-mode forward, as a served batch runs it
+    from pygho_tpu_torch.hodata.sp_data import batch_to_sparse_dict
+
+    dd = batch_to_sparse_dict(batches[0], ("",), torch.device("cuda"))
+    model.eval()
+
+    def forwards(n):
+        times = []
+        with torch.inference_mode():
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model(dd)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    forwards(3)
+    fwd_ab = []
+    for det in (True, False, False, True):
+        torch.use_deterministic_algorithms(det)
+        fwd_ab.append((det, forwards(args.steps)))
+    model.train()
+    torch.use_deterministic_algorithms(True)
+    for what, pairs in (("training step", ab), ("eval forward", fwd_ab)):
+        for det, ms in pairs:
+            print(f"{what} wall time, deterministic algorithms "
+                  f"{'on ' if det else 'off'}: {ms:.3f} ms (median of "
+                  f"{args.steps})")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.steps):
+            train_step(model, opt, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # the kernels' and copies' own rows: an operator's row repeats its
+    # kernels' time, and a user annotation's device row
+    # ("Optimizer.step#AdamW.step") spans kernels that have rows of their own
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(dev_us(e) for e in kernels)
+    k1_us = sum(dev_us(e) for e in kernels if "spspmm_sum_kernel" in e.key)
+    print(f"traced {args.steps} steps: wall {wall_ms:.3f} ms "
+          f"({wall_ms / args.steps:.3f} ms a step), device busy "
+          f"{busy_us / 1e3:.3f} ms ({busy_us / 1e3 / wall_ms:.1%} of the "
+          f"wall), K1 kernels {k1_us / 1e3:.3f} ms "
+          f"({k1_us / max(busy_us, 1e-9):.1%} of the device time)")
+    print("kernels with the most device time, per step:")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:20]:
+        print(f"  {dev_us(e) / 1e3 / args.steps:8.3f} ms  "
+              f"{e.count / args.steps:6.1f} launches  {e.key[:100]}")
+    ops = [e for e in events
+           if e.device_type != torch.autograd.DeviceType.CUDA
+           and e.key.startswith(("aten::", "autograd::", "Optimizer",
+                                 "SpspmmSum"))]
+    print("operators with the most device time (their kernels and their "
+          "callees' kernels), per step:")
+    for e in sorted(ops, key=lambda e: getattr(
+            e, "device_time_total", getattr(e, "cuda_time_total", 0.0)),
+            reverse=True)[:20]:
+        t = getattr(e, "device_time_total",
+                    getattr(e, "cuda_time_total", 0.0))
+        print(f"  {t / 1e3 / args.steps:8.3f} ms  {e.count / args.steps:6.1f}"
+              f" calls  host {e.self_cpu_time_total / 1e3 / args.steps:7.3f}"
+              f" ms self  {e.key[:80]}")
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "trace_train_gpu.txt").write_text(events.table(
+        sort_by="self_cuda_time_total", row_limit=80))
+    prof.export_chrome_trace(str(out / "trace_train_gpu.json"))
+    def turns(pairs):
+        return {("det_on" if d else "det_off") + f"_{i}": ms
+                for i, (d, ms) in enumerate(pairs)}
+
+    print(json.dumps({"card": card, "step_ms": turns(ab),
+                      "eval_forward_ms": turns(fwd_ab),
+                      "traced_wall_ms": wall_ms,
+                      "device_busy_ms": busy_us / 1e3,
+                      "k1_ms": k1_us / 1e3}))
+
+
+if __name__ == "__main__":
+    main()

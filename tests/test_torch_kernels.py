@@ -117,11 +117,11 @@ def test_wrapper_edge_cases(rng, D):
     rowptr[1:] = np.cumsum(np.bincount(a, minlength=out_rows))
     U = rng.normal(size=(u_rows, D)).astype(np.float32)
     V = rng.normal(size=(v_rows, D)).astype(np.float32)
-    before = spspmm_sum.launches
+    before = spspmm_sum.FWD.launches
     out = spspmm_sum.spspmm_sum(torch.from_numpy(U), torch.from_numpy(V),
                                 torch.from_numpy(acd),
                                 torch.from_numpy(rowptr)).numpy()
-    assert spspmm_sum.launches == before     # the CPU runs no kernel
+    assert spspmm_sum.FWD.launches == before     # the CPU runs no kernel
     ref = _loop_oracle(U, V, acd, out_rows)
     # row 7 sums 300+ products: f32 rounding grows with the count
     assert np.abs(out - ref).max() < 1e-4
