@@ -6,14 +6,16 @@ card.
 Phases, each printing its wall seconds:
 
 1. device: requires a CUDA card and prints its name and power limit;
-2. build: builds every kernel of the main path from ``pygho_tpu_torch/csrc``
-   with ``nvcc`` (all sources at once);
-3. kernels: holds each kernel (K1's forward, dX and dA roles) against its
-   plain PyTorch version on the card, at the shapes the main path gives it
-   (one 128-graph batch of ``synthetic_zinc("val")``,
-   ``KhopSampler(hop=3)``, D = 128) and on edge cases, holds the
-   ``SpspmmSum`` gradients against autograd through the plain version, and
-   times kernels and plain versions;
+2. build: builds every kernel of the main paths from
+   ``pygho_tpu_torch/csrc`` with ``nvcc`` (all sources at once);
+3. kernels: holds each kernel (K1's forward, dX and dA roles; K5's
+   forward, dA and dX roles) against its plain PyTorch version on the
+   card, at the shapes the main paths give it (K1: one 128-graph batch of
+   ``synthetic_zinc("val")``, ``KhopSampler(hop=3)``, D = 128; K5: one
+   128-graph batch, ``spdsampler(hop=4)``, (128, 32, 32, 128)) and on edge
+   cases, holds the ``SpspmmSum`` and ``ChannelwiseBmm`` gradients against
+   autograd through the plain versions, and times kernels, plain versions
+   and, for K5, the library's ``torch.einsum``;
 4. serving: serves NGNN-SS 6x128 (weights from a seed) through the port's
    ``SpPredictor`` over three requests, checks that every batch went through
    the forward kernel, that the outputs are finite, ordered and repeatable,
@@ -25,7 +27,15 @@ Phases, each printing its wall seconds:
    role six times, that the losses are finite, that a second run gives the
    same bits, and that the CPU run with the plain versions gives the same
    losses within ``TRAIN_RTOL``; then prints graphs/s trained and one
-   step's breakdown.
+   step's breakdown;
+6. dense serving: serves PPGN-DD 6x128 (``runs/converged/PPGN_dense.json``,
+   weights from a seed) through ``MaPredictor`` over three requests, with
+   the checks of phase 4 and six K5 forward launches per batch;
+7. dense training: trains PPGN-DD 6x128 for ten AdamW steps through
+   ``make_dense_steps``, checks 6 + 6 + 6 K5 launches a step, finite
+   losses, a bitwise-identical second run and the CPU's losses over the
+   first ``DENSE_CPU_STEPS`` steps; prints graphs/s trained and the peak
+   device memory.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -75,6 +85,27 @@ TRAIN_LR = 1e-3
 # order through forward, backward and ten AdamW steps (the JAX package's
 # own ten-step differential against the torch reference held 3e-4)
 TRAIN_RTOL = 1e-3
+
+# PPGN-DD 6x128 as runs/converged/PPGN_dense.json trains it (6 layers x
+# 128, mlplayer 2, outlayer 4, npool sum, lpool mean, normparam 0.185,
+# spdsampler hop 4, batch 128), with example/zinc_tpu.py's MLP settings
+DENSE = dict(num_layer=6, hiddim=128, npool="sum", lpool="mean",
+             outlayer=4, mlp={"dp": 0.0, "norm": "bn", "act": "silu",
+                              "normparam": 0.185, "numlayer": 2,
+                              "tailact": True})
+DENSE_HOP = 4
+DENSE_LR = 4.5e-3            # the converged run's base learning rate
+# served predictions, card vs CPU: as SERVE_TOL, through six layers whose
+# channel-wise products each sum 32 terms
+DENSE_SERVE_TOL = 1e-4
+# the CPU repeats this many of the card's ten steps: a PPGN-DD 6x128 step
+# at batch 128 takes tens of seconds on the CPU with the plain K5
+DENSE_CPU_STEPS = 3
+DENSE_TRAIN_RTOL = 1e-3
+# K5 vs its plain version on the card: the same rounded f32 products summed
+# in the same order, so they should agree exactly; the tolerance of each
+# output is K5_RTOL * sum |A[b,i,k,d] * X[b,k,j,d]| over its k
+K5_RTOL = 1e-6
 
 
 def phase(name):
@@ -328,8 +359,6 @@ def calibrate_batchnorm(model, predictor, datas):
     weights give activations of order 1 in every layer."""
     import torch
 
-    from pygho_tpu_torch.hodata.loader import SpDataloader
-    from pygho_tpu_torch.hodata.sp_data import batch_to_sparse_dict
     from pygho_tpu_torch.honn.utils import BatchNorm
 
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
@@ -337,10 +366,9 @@ def calibrate_batchnorm(model, predictor, datas):
     for bn in bns:
         bn.momentum = 1.0
     model.train()
-    batch = next(iter(SpDataloader(datas, predictor.batch_size,
-                                   predictor.keys)))
+    batch = next(iter(predictor._loader(datas)))
     with torch.no_grad():
-        model(batch_to_sparse_dict(batch, ("",), predictor.device))
+        model(predictor._to_dict(batch))
     for bn, m in zip(bns, saved):
         bn.momentum = m
     model.eval()
@@ -428,13 +456,10 @@ def serve(graphs, rng, dev):
 
 
 def breakdown(model, predictor, datas, dev, reps=5):
-    """Where one 128-graph batch's time goes: host collation, the copy to
-    the card, and the forward (host wall time to its synchronised end, and
-    device time between CUDA events)."""
+    """Where one batch's time goes: host collation, the copy to the card,
+    and the forward (host wall time to its synchronised end, and device
+    time between CUDA events)."""
     import torch
-
-    from pygho_tpu_torch.hodata.loader import SpDataloader
-    from pygho_tpu_torch.hodata.sp_data import batch_to_sparse_dict
 
     def median_s(fn):
         times = []
@@ -446,12 +471,12 @@ def breakdown(model, predictor, datas, dev, reps=5):
             times.append(time.perf_counter() - t0)
         return statistics.median(times)
 
-    loader = SpDataloader(datas, predictor.batch_size, predictor.keys)
+    loader = predictor._loader(datas)
     loader.buckets = predictor._buckets
     collate_s = median_s(lambda: next(iter(loader)))
     batch = next(iter(loader))
-    copy_s = median_s(lambda: batch_to_sparse_dict(batch, ("",), dev))
-    dd = batch_to_sparse_dict(batch, ("",), dev)
+    copy_s = median_s(lambda: predictor._to_dict(batch))
+    dd = predictor._to_dict(batch)
     with torch.inference_mode():
         forward_s = median_s(lambda: model(dd))
         dev_ms = time_ms(lambda: model(dd), lambda: None, reps=reps,
@@ -524,7 +549,8 @@ def training(card, dev):
                 for i, c in enumerate(counts)]
     print(f"trained {TRAIN_STEPS} steps in {run_s:.3f} s; losses "
           f"{[f'{x:.6f}' for x in losses]}; kernel launches {launches}")
-    want = {mod.NAME: 6 for mod in KERNELS}
+    want = {mod.NAME: 6 if mod.SOURCE.endswith("spspmm_sum.cu") else 0
+            for mod in KERNELS}
     for i, c in enumerate(per_step):
         if c != want:
             raise AssertionError(f"step {i} launched {c}, expected {want}")
@@ -620,6 +646,355 @@ def train_timing(card, dev, datas, reps=8):
           f"{med['optimizer']:.3f} ms; sum {sum(med.values()):.3f} ms")
 
 
+def k5_bound(shape):
+    """The least time of one K5 role on the card: its two operands read
+    once and its output written once, against its 2 * b * n^3 * d f32
+    operations.  Returns (ms, "bytes" or "operations", bytes,
+    operations)."""
+    b, n, _, d = shape
+    nbytes = 3 * b * n * n * d * 4
+    flops = 2 * b * n ** 3 * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def check_k5(datas, dev, rng, flush):
+    """K5's three roles at the dense path's shape and on edge cases,
+    against their plain version on the card; the four ``mamamm`` dim
+    variants; and ``ChannelwiseBmm``'s gradients against autograd through
+    the plain version.  Returns the roles' lines of the report."""
+    import numpy as np
+    import torch
+
+    from pygho_tpu_torch.backend.mamamm import mamamm
+    from pygho_tpu_torch.backend.matensor import MaskedTensor
+    from pygho_tpu_torch.hodata import MaDataloader
+    from pygho_tpu_torch.kernels import channelwise_bmm as k5
+
+    batch = next(iter(MaDataloader(datas, 128)))
+    mask = torch.from_numpy(batch["X_mask"]).to(dev)
+    shape = tuple(mask.shape) + (DENSE["hiddim"],)
+
+    def operand(shape, mask=None):
+        """Normal values, zero off ``mask`` as ``mamamm`` fills them."""
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(dev)
+        return x if mask is None else torch.where(mask[..., None], x, 0.0)
+
+    def role_args(A, X, g):
+        """Each role's operands as ``ChannelwiseBmm`` passes them, the
+        transposes as strided views: forward (A, X), dA (g, X^T), dX
+        (A^T, g)."""
+        return {k5.FWD: (A, X), k5.DA: (g, X.transpose(1, 2)),
+                k5.DX: (A.transpose(1, 2), g)}
+
+    def compare(role, A, X):
+        """Kernel vs plain version: (max abs error, max error over its
+        tolerance K5_RTOL * sum |terms|)."""
+        out = k5.cw_bmm(role, A, X)
+        ref = k5.cw_bmm_plain(A, X)
+        mag = k5.cw_bmm_plain(A.abs(), X.abs())
+        sync()
+        if tuple(out.shape) != tuple(A.shape) or not out.is_contiguous():
+            raise AssertionError(f"{role.NAME} gave {tuple(out.shape)}")
+        diff = (out - ref).abs()
+        return (float(diff.max()),
+                float((diff / (K5_RTOL * mag).clamp_min(1e-30)).max()))
+
+    def held(what, err, ratio):
+        print(f"{what}: max abs err {err:.3e}, {ratio:.3f} of the tolerance "
+              f"{K5_RTOL:g} * sum |terms|")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{what} disagrees with the plain version: "
+                                 f"{err}")
+
+    A, X, g = (operand(shape, mask) for _ in range(3))
+    main = role_args(A, X, g)
+    errs = {}
+    for role, args in main.items():
+        errs[role], ratio = compare(role, *args)
+        held(f"{role.NAME} main shape {shape}", errs[role], ratio)
+
+    # edge cases, for every role: n = 1; n (37, 33) not a multiple of the
+    # tiles of i (16), j (32) or k (4); d (13, 200) not a multiple of the
+    # 32 channels of a block; a batch whose first graph is all masked
+    for name, shp in (("n=1", (4, 1, 1, 128)),
+                      ("n=37", (3, 37, 37, 128)),
+                      ("d=13", (5, 20, 20, 13)),
+                      ("n=33, d=200", (2, 33, 33, 200))):
+        case = role_args(*(operand(shp) for _ in range(3)))
+        for role, args in case.items():
+            held(f"{role.NAME} edge case {name} {shp}", *compare(role, *args))
+    empty = mask[:6].clone()
+    empty[0] = False
+    case = role_args(*(operand(tuple(empty.shape) + (128,), empty)
+                       for _ in range(3)))
+    for role, args in case.items():
+        held(f"{role.NAME} edge case all-masked graph", *compare(role, *args))
+        if bool((k5.cw_bmm(role, *args)[0] != 0).any()):
+            raise AssertionError(f"{role.NAME}: an all-masked graph gave a "
+                                 f"non-zero output")
+
+    # mamamm's four (dim1, dim2) variants, each brought to the kernel's
+    # (2, 1) contraction through strided views
+    ma = MaskedTensor(operand(tuple(empty.shape) + (128,)), empty)
+    mb = MaskedTensor(operand(tuple(empty.shape) + (128,)), mask[6:12])
+    for dim1, dim2 in ((2, 1), (1, 1), (2, 2), (1, 2)):
+        with torch.no_grad():
+            out = mamamm(ma, dim1, mb, dim2, empty).data
+            fa, fb = ma.fill_masked(0.0), mb.fill_masked(0.0)
+            fa = fa if dim1 == 2 else fa.transpose(1, 2)
+            fb = fb if dim2 == 1 else fb.transpose(1, 2)
+            ref = k5.cw_bmm_plain(fa, fb)
+            mag = k5.cw_bmm_plain(fa.abs(), fb.abs())
+        diff = (out - ref).abs()
+        held(f"mamamm (dim1, dim2) = ({dim1}, {dim2}) through "
+             f"{k5.FWD.NAME}", float(diff.max()),
+             float((diff / (K5_RTOL * mag).clamp_min(1e-30)).max()))
+
+    # ChannelwiseBmm's gradients against autograd through the plain version
+    W = operand(shape, mask)
+    Ak, Xk = A.clone().requires_grad_(), X.clone().requires_grad_()
+    (k5.ChannelwiseBmm.apply(Ak, Xk) * W).sum().backward()
+    Ap, Xp = A.clone().requires_grad_(), X.clone().requires_grad_()
+    (k5.cw_bmm_plain(Ap, Xp) * W).sum().backward()
+    with torch.no_grad():
+        mags = (k5.cw_bmm_plain(W.abs(), X.abs().transpose(1, 2)),
+                k5.cw_bmm_plain(A.abs().transpose(1, 2), W.abs()))
+    for what, got, ref, mag in (("grad_A", Ak.grad, Ap.grad, mags[0]),
+                                ("grad_X", Xk.grad, Xp.grad, mags[1])):
+        diff = (got - ref).abs()
+        held(f"ChannelwiseBmm {what} vs autograd through the plain version",
+             float(diff.max()),
+             float((diff / (K5_RTOL * mag).clamp_min(1e-30)).max()))
+    del Ak, Xk, Ap, Xp, W, mags
+
+    report = []
+    bound_ms, bound_by, nbytes, flops = k5_bound(shape)
+    for role, args in main.items():
+        ms = time_ms(lambda: k5.cw_bmm(role, *args), flush)
+        plain_ms = time_ms(lambda: k5.cw_bmm_plain(*args), flush)
+        # the library's call for the same function on the same inputs, f32
+        # without TF32 (set_parity_numerics)
+        lib_ms = time_ms(lambda: torch.einsum("bikd,bkjd->bijd", *args),
+                         flush)
+        warm_ms = time_ms(lambda: k5.cw_bmm(role, *args),
+                          lambda: torch.cuda._sleep(1_000_000))
+        print(f"{role.NAME} timing (L2 flushed before each launch, median "
+              f"of 30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.einsum {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({nbytes} bytes at 3.35 TB/s, {flops} f32 operations at 67 "
+              f"TFLOP/s); kernel with its inputs left in L2 {warm_ms:.4f} ms")
+        report.append({"name": role.NAME, "route": "cuda",
+                       "source": role.SOURCE, "replaces": role.REPLACES,
+                       "launches": None, "max_abs_err": errs[role],
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms})
+    return report
+
+
+def dense_model(device):
+    """PPGN-DD as DENSE configures it, weights from seed 0."""
+    from pygho_tpu_torch.models import make_ma_model
+
+    return make_ma_model("PPGN", seed=0, device=device, **DENSE)
+
+
+def serve_dense(graphs, rng, dev):
+    """PPGN-DD 6x128 through MaPredictor on ``dev``, then on the CPU."""
+    import numpy as np
+
+    from pygho_tpu_torch.hodata import spdsampler
+    from pygho_tpu_torch.kernels import KERNELS
+    from pygho_tpu_torch.kernels import channelwise_bmm as k5
+    from pygho_tpu_torch.models import MaPredictor
+
+    model = dense_model(dev)
+    sampler = partial(spdsampler, hop=DENSE_HOP)
+    predictor = MaPredictor(model, sampler, batch_size=128, device=dev)
+    datas = predictor.preprocess(graphs)
+    calibrate_batchnorm(model, predictor, datas)
+
+    subset = [int(i) for i in rng.permutation(len(graphs))[:40]]
+    requests = [graphs, [graphs[i] for i in subset], graphs]
+    n_batches = sum(math.ceil(len(r) / predictor.batch_size)
+                    for r in requests)
+    # the main path: counts to 0 just before, read just after
+    for mod in KERNELS:
+        mod.launches = 0
+    outs, walls = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        outs.append(predictor(req))
+        walls.append(time.perf_counter() - t0)
+    launches = {mod.NAME: mod.launches for mod in KERNELS}
+    print(f"served {[len(r) for r in requests]} graphs in {n_batches} "
+          f"batches, {[f'{w:.3f}' for w in walls]} s; kernel launches "
+          f"{launches}")
+    expected = {mod.NAME: 0 for mod in KERNELS}
+    expected[k5.FWD.NAME] = DENSE["num_layer"] * n_batches
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+
+    full, part, again = outs
+    for o, req in zip(outs, requests):
+        if o.shape != (len(req), 1) or not np.isfinite(o).all():
+            raise AssertionError(f"bad output {o.shape}, finite "
+                                 f"{np.isfinite(o).all()}")
+    rep = max(float(np.abs(again - full).max()),
+              float(np.abs(part - full[subset]).max()))
+    print(f"repeated graphs: max abs difference {rep:.3e} "
+          f"(tolerance {REPEAT_TOL:g}); predictions range "
+          f"[{full.min():.4f}, {full.max():.4f}]")
+    if not rep <= REPEAT_TOL:
+        raise AssertionError(f"repeated graphs differ by {rep}")
+
+    t0 = time.perf_counter()
+    cpu = MaPredictor(copy.deepcopy(model).cpu(), sampler, batch_size=128,
+                      device="cpu")
+    cpu_full, cpu_part = cpu(datas), cpu([datas[i] for i in subset])
+    diff = max(float(np.abs(cpu_full - full).max()),
+               float(np.abs(cpu_part - part).max()))
+    print(f"card vs CPU (plain versions, {time.perf_counter() - t0:.3f} s "
+          f"on the CPU): max abs difference {diff:.3e} (tolerance "
+          f"{DENSE_SERVE_TOL:g})")
+    if not diff <= DENSE_SERVE_TOL:
+        raise AssertionError(f"card and CPU disagree by {diff}")
+
+    sync()
+    t0 = time.perf_counter()
+    predictor(graphs)
+    raw_s = time.perf_counter() - t0
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        predictor(datas)
+    pre_s = (time.perf_counter() - t0) / reps
+    breakdown(model, predictor, datas, dev)
+    return len(graphs) / raw_s, len(graphs) / pre_s, launches
+
+
+def dense_train_run(device, batches, steps, per_step=None):
+    """PPGN-DD 6x128 from seed 0, ``steps`` AdamW steps at DENSE_LR on
+    ``batches`` through the port's ``make_dense_steps``.  Returns the
+    per-step losses and the model."""
+    from pygho_tpu_torch.models import make_dense_steps, make_optimizer
+
+    model = dense_model(device)
+    model.train()
+    opt = make_optimizer(model, DENSE_LR)
+    train_step, _ = make_dense_steps()
+    losses = []
+    for i, batch in enumerate(batches[:steps]):
+        losses.append(train_step(model, opt, batch))
+        if per_step is not None:
+            per_step(i)
+    return [float(x) for x in losses], model
+
+
+def train_dense(card, dev):
+    """PPGN-DD 6x128 trains on the card: 6 launches of each K5 role a
+    step, finite losses, two runs bitwise identical, the CPU's losses
+    within DENSE_TRAIN_RTOL over DENSE_CPU_STEPS steps; then graphs/s
+    trained and the peak device memory.  Returns the launches of the
+    first training run."""
+    import torch
+
+    from pygho_tpu_torch.hodata import (MaDataloader, Mapretransform,
+                                        spdsampler, synthetic_zinc)
+    from pygho_tpu_torch.kernels import KERNELS
+    from pygho_tpu_torch.models import make_dense_steps, make_optimizer
+
+    t0 = time.perf_counter()
+    pre = Mapretransform(partial(spdsampler, hop=DENSE_HOP))
+    datas = [pre(g) for g in synthetic_zinc("train", seed=SEED)]
+    loader = MaDataloader(datas, 128, shuffle=True, drop_last=True, seed=0)
+    batches = []
+    while len(batches) < TRAIN_STEPS:      # 8 batches an epoch
+        batches.extend(loader)
+    batches = batches[:TRAIN_STEPS]
+    print(f"dense training data: {len(datas)} graphs of synthetic_zinc("
+          f"\"train\"), {TRAIN_STEPS} shuffled batches of 128 (loader seed "
+          f"0, n padded to {batches[0]['X_data'].shape[1]}), preprocessed "
+          f"and collated in {time.perf_counter() - t0:.3f} s")
+
+    counts = []
+
+    def read(_):
+        counts.append({mod.NAME: mod.launches for mod in KERNELS})
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts to 0 just before, read after every step
+    for mod in KERNELS:
+        mod.launches = 0
+    t0 = time.perf_counter()
+    losses, model = dense_train_run(dev, batches, TRAIN_STEPS, read)
+    sync()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(counts[-1])
+    per_step = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in c}
+                for i, c in enumerate(counts)]
+    print(f"trained {TRAIN_STEPS} steps in {run_s:.3f} s; losses "
+          f"{[f'{x:.6f}' for x in losses]}; kernel launches {launches}; "
+          f"peak device memory {peak / 2 ** 30:.3f} GiB")
+    want = {mod.NAME: DENSE["num_layer"]
+            if mod.SOURCE.endswith("channelwise_bmm.cu") else 0
+            for mod in KERNELS}
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"step {i} launched {c}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+
+    again, model2 = dense_train_run(dev, batches, TRAIN_STEPS)
+    state, state2 = model.state_dict(), model2.state_dict()
+    same = again == losses and all(torch.equal(state[k], state2[k])
+                                   for k in state)
+    print(f"second run from the same seed: losses and all {len(state)} "
+          f"parameters and buffers bitwise identical: {same}")
+    if not same:
+        raise AssertionError(f"two runs differ: {losses} vs {again}")
+    del model, model2, state, state2
+
+    t0 = time.perf_counter()
+    cpu_losses, _ = dense_train_run("cpu", batches, DENSE_CPU_STEPS)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    print(f"card vs CPU (plain versions), the first {DENSE_CPU_STEPS} steps "
+          f"in {time.perf_counter() - t0:.3f} s on the CPU: max relative "
+          f"loss difference {rel:.3e} (tolerance {DENSE_TRAIN_RTOL:g}); CPU "
+          f"losses {[f'{x:.6f}' for x in cpu_losses]}")
+    if not rel <= DENSE_TRAIN_RTOL:
+        raise AssertionError(f"card and CPU losses differ by {rel}")
+
+    # graphs/s trained: one epoch of 8 steps after a warm-up epoch,
+    # collation included, one sync at the end
+    model = dense_model(dev)
+    model.train()
+    opt = make_optimizer(model, DENSE_LR)
+    train_step, _ = make_dense_steps()
+    for batch in loader:
+        train_step(model, opt, batch)
+    sync()
+    t0 = time.perf_counter()
+    n = 0
+    for batch in loader:
+        train_step(model, opt, batch)
+        n += 128
+    sync()
+    gps = n / (time.perf_counter() - t0)
+    dev_ms = time_ms(lambda: train_step(model, opt, batches[0]),
+                     lambda: None, reps=5, warmup=1)
+    print(f"PPGN-DD 6x128 training on {card}: {gps:.1f} graphs/s trained "
+          f"(one epoch of 8 steps, collation included); one step "
+          f"{dev_ms:.3f} ms between CUDA events (median of 5, copy "
+          f"included); peak device memory {peak / 2 ** 30:.3f} GiB "
+          f"({peak} bytes)")
+    return launches
+
+
 def main():
     t_all = time.perf_counter()
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -659,7 +1034,8 @@ def main():
     done("build", t0)
 
     set_parity_numerics()
-    from pygho_tpu_torch.hodata import (KhopSampler, Sppretransform,
+    from pygho_tpu_torch.hodata import (KhopSampler, Mapretransform,
+                                        Sppretransform, spdsampler,
                                         synthetic_zinc)
 
     graphs = synthetic_zinc("val", seed=SEED)
@@ -670,6 +1046,9 @@ def main():
     pre = Sppretransform(partial(KhopSampler, hop=3), [""], [KEY])
     datas = [pre(g) for g in graphs]
     report = check_k1(datas, dev, rng, flush_buf.zero_)
+    dense_pre = Mapretransform(partial(spdsampler, hop=DENSE_HOP))
+    report += check_k5([dense_pre(g) for g in graphs], dev, rng,
+                       flush_buf.zero_)
     done("kernels", t0)
 
     t0 = phase("serving")
@@ -683,11 +1062,25 @@ def main():
     train_launches = training(card, dev)
     done("training", t0)
 
-    # launches: the serving run's and the first training run's, each
-    # counted from 0 just before its path and read just after
+    t0 = phase("dense serving")
+    raw_gps, pre_gps, dense_launches = serve_dense(graphs, rng, dev)
+    print(f"PPGN-DD 6x128 serving on {card}: {raw_gps:.1f} graphs/s from "
+          f"raw graphs (host precompute included), {pre_gps:.1f} graphs/s "
+          f"from preprocessed graphs")
+    done("dense serving", t0)
+
+    t0 = phase("dense training")
+    dense_train_launches = train_dense(card, dev)
+    done("dense training", t0)
+
+    # launches: each main path's run (sparse serving and training, dense
+    # serving and training), each counted from 0 just before the path and
+    # read just after
     for line in report:
-        line["launches"] = launches[line["name"]] \
-            + train_launches[line["name"]]
+        line["launches"] = sum(
+            run[line["name"]] for run in (launches, train_launches,
+                                          dense_launches,
+                                          dense_train_launches))
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": report}))

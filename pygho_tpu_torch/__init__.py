@@ -4,8 +4,9 @@ H100.
 It imports torch, numpy and scipy, and nothing of JAX or of
 ``pygho_tpu``.  Entry points run on the CUDA card unless the caller
 passes ``device="cpu"``.  The hot contraction of sparse message passing
-and its two gradients run as hand-written CUDA kernels (``kernels/``,
-sources in ``csrc/``), built with ``nvcc`` at their first use.
+(K1), the channel-wise product of the dense mode (K5) and their gradients
+run as hand-written CUDA kernels (``kernels/``, sources in ``csrc/``),
+built with ``nvcc`` at their first use.
 
 Importing the package sets ``CUBLAS_WORKSPACE_CONFIG`` to ``:4096:8``
 where the environment leaves it unset: the parity mode
@@ -18,8 +19,10 @@ import os
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+from .backend.matensor import MaskedTensor
 from .backend.sptensor import SparseTensor
 from .device import resolve_device
-from .models import SpPredictor, make_sp_model
+from .models import MaPredictor, SpPredictor, make_ma_model, make_sp_model
 
-__all__ = ["SparseTensor", "SpPredictor", "make_sp_model", "resolve_device"]
+__all__ = ["MaPredictor", "MaskedTensor", "SparseTensor", "SpPredictor",
+           "make_ma_model", "make_sp_model", "resolve_device"]

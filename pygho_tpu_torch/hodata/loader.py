@@ -1,11 +1,12 @@
-"""Sparse pre-transform and dataloader (port of the sparse parts of
+"""Pre-transforms and dataloaders, sparse and dense (port of
 ``pygho_tpu/hodata/loader.py``).
 
-The loader collates in the calling thread: no collation threads and no
+The loaders collate in the calling thread: no collation threads and no
 device prefetch.  In place of the TPU kernel plans (``add_spspmm_plans``)
-it gives each precompute key what the CUDA kernels read
+the sparse loader gives each precompute key what the CUDA kernels read
 (:func:`add_rowptr`): the real ``acd`` triples and their row pointer, and
 for training the same triples in the orders of the two backward roles.
+The dense loader needs nothing of the kind: K5 reads the padded tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 
 from ..backend.indexing import PAD_INDEX
 from ..honn.sp_operator import KEYSEP
+from .ma_data import collate_dense, ma_datapreprocess
 from .sp_data import collate_sparse, parsekey, sp_datapreprocess
 
 
@@ -36,6 +38,15 @@ def Sppretransform(tuplesamplers, annotate: Sequence[str] = ("",),
     return functools.partial(sp_datapreprocess,
                              tuplesamplers=tuplesamplers,
                              annotate=tuple(annotate), keys=tuple(keys))
+
+
+def Mapretransform(tuplesamplers, annotate: Sequence[str] = ("",)):
+    """Build the dense pre-transform (reference Wrapper.py:59-76)."""
+    if callable(tuplesamplers):
+        tuplesamplers = [tuplesamplers]
+    return functools.partial(ma_datapreprocess,
+                             tuplesamplers=tuplesamplers,
+                             annotate=tuple(annotate))
 
 
 def row_pointer(t: np.ndarray, rows: int) -> np.ndarray:
@@ -116,35 +127,33 @@ def add_rowptr(batch: Dict[str, Any], keys: Sequence[str],
                 batch[f"{key}{KEYSEP}rowptr_{role}"] = rowptr
 
 
-class SpDataloader:
-    """Sparse batches collated in the calling thread (reference
-    Wrapper.py:101-132).  Yields numpy dicts with the kernels' row
-    pointers added; ``batch_to_sparse_dict`` moves one onto a device.
-    Every batch is padded with empty graphs to ``batch_size``.
+class _BaseLoader:
+    """Batches of ``dataset`` collated in the calling thread, each padded
+    with empty graphs to ``batch_size`` (reference Wrapper.py:101-176).
 
     ``shuffle``, ``drop_last`` and ``seed`` have the JAX loader's
     semantics: one ``numpy.random.default_rng(seed)`` per loader shuffles
     the dataset order anew each epoch, and ``drop_last`` drops the last
-    partial batch.  ``backward=True`` adds the backward roles' triples
-    (:func:`add_rowptr`), which a training step needs."""
+    partial batch.  Shape buckets are kept across batches in
+    ``buckets``."""
 
     def __init__(self, dataset: List[Dict[str, Any]], batch_size: int,
-                 keys: Sequence[str] = ("",), shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0,
-                 backward: bool = False):
+                 shuffle: bool = False, drop_last: bool = False,
+                 seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.keys = tuple(keys)
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.rng = np.random.default_rng(seed)
-        self.backward = backward
         self.buckets: Dict[str, int] = Buckets()
 
     def __len__(self):
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last \
             else -(-n // self.batch_size)
+
+    def _collate(self, datas: List[Dict[str, Any]]) -> Dict[str, Any]:
+        raise NotImplementedError
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         idx = np.arange(len(self.dataset))
@@ -153,8 +162,48 @@ class SpDataloader:
         bs = self.batch_size
         stop = (len(idx) // bs) * bs if self.drop_last else len(idx)
         for s in range(0, stop, bs):
-            batch = collate_sparse([self.dataset[i] for i in idx[s:s + bs]],
-                                   self.keys, num_graphs=bs,
-                                   buckets=self.buckets)
-            add_rowptr(batch, self.keys, self.backward)
-            yield batch
+            yield self._collate([self.dataset[i] for i in idx[s:s + bs]])
+
+
+class SpDataloader(_BaseLoader):
+    """Sparse batches (reference Wrapper.py:101-132).  Yields numpy dicts
+    with the kernels' row pointers added; ``batch_to_sparse_dict`` moves
+    one onto a device.  ``backward=True`` adds the backward roles' triples
+    (:func:`add_rowptr`), which a training step needs."""
+
+    def __init__(self, dataset: List[Dict[str, Any]], batch_size: int,
+                 keys: Sequence[str] = ("",), shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0,
+                 backward: bool = False):
+        super().__init__(dataset, batch_size, shuffle, drop_last, seed)
+        self.keys = tuple(keys)
+        self.backward = backward
+
+    def _collate(self, datas):
+        batch = collate_sparse(datas, self.keys, num_graphs=self.batch_size,
+                               buckets=self.buckets)
+        add_rowptr(batch, self.keys, self.backward)
+        return batch
+
+
+class MaDataloader(_BaseLoader):
+    """Dense batches (reference Wrapper.py:135-176).  Yields the numpy
+    dicts of ``collate_dense``; ``batch_to_dense_dict`` moves one onto a
+    device.  Only the dense adjacency is ported: ``denseadj=False`` (SD
+    mode) and ``build_plans`` (the SD mode's K2 plans) raise."""
+
+    def __init__(self, dataset: List[Dict[str, Any]], batch_size: int,
+                 annotate: Sequence[str] = ("",), denseadj: bool = True,
+                 build_plans: bool = False, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0):
+        if not denseadj or build_plans:
+            raise NotImplementedError(
+                "the SD mode (denseadj=False) and its kernel plans "
+                "(build_plans) are not ported yet")
+        super().__init__(dataset, batch_size, shuffle, drop_last, seed)
+        self.annotate = tuple(annotate)
+
+    def _collate(self, datas):
+        return collate_dense(datas, self.annotate,
+                             num_graphs=self.batch_size,
+                             buckets=self.buckets)

@@ -1,5 +1,6 @@
-from .conv import NGNNConv
+from .conv import NGNNConv, PPGNConv
 from .sp_operator import KEYSEP, parse_precomputekey
 from .utils import MLP, BatchNorm
 
-__all__ = ["BatchNorm", "KEYSEP", "MLP", "NGNNConv", "parse_precomputekey"]
+__all__ = ["BatchNorm", "KEYSEP", "MLP", "NGNNConv", "PPGNConv",
+           "parse_precomputekey"]

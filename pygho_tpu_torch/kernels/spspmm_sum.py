@@ -40,15 +40,15 @@ SOURCE = "pygho_tpu_torch/csrc/spspmm_sum.cu"
 
 
 class Role:
-    """One role of K1: the name of its kernel (also its C entry point in
-    ``SOURCE``), the TPU kernel role it replaces, and the count of its
-    launches since the last reset (only a kernel launch adds to it)."""
+    """One role of a kernel: the name of its kernel (also its C entry
+    point in ``SOURCE``, the CUDA file), the TPU kernel role it replaces,
+    and the count of its launches since the last reset (only a kernel
+    launch adds to it)."""
 
-    SOURCE = SOURCE
-
-    def __init__(self, name: str, replaces: str):
+    def __init__(self, name: str, replaces: str, source: str = SOURCE):
         self.NAME = name
         self.REPLACES = replaces
+        self.SOURCE = source
         self.launches = 0
 
     def __repr__(self):

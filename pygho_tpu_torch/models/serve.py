@@ -1,11 +1,12 @@
-"""Batched prediction over raw graphs (port of ``SpPredictor`` from
-``pygho_tpu/models/serve.py``).
+"""Batched prediction over raw graphs (port of ``SpPredictor`` and
+``MaPredictor`` from ``pygho_tpu/models/serve.py``).
 
-``SpPredictor`` owns the host pipeline for inference: tuple-sampler
+A predictor owns the host pipeline for inference: tuple-sampler
 precompute, bucket-padded collation with shape buckets kept across calls,
-an eval-mode forward under ``torch.inference_mode()``, and unpadding in
-input order.  Host precompute runs in the calling process
-(``num_workers=0``); the JAX package's process pool is not ported.
+an eval-mode forward under ``torch.inference_mode()`` in the parity mode,
+and unpadding in input order.  Host precompute runs in the calling
+process (``num_workers=0``); the JAX package's process pool is not
+ported.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..hodata.loader import Buckets, SpDataloader, Sppretransform
+from ..hodata.loader import (Buckets, MaDataloader, Mapretransform,
+                             SpDataloader, Sppretransform)
+from ..hodata.ma_data import batch_to_dense_dict
 from ..hodata.sp_data import batch_to_sparse_dict
 
 
@@ -55,19 +58,14 @@ def set_parity_numerics() -> None:
     torch.utils.deterministic.fill_uninitialized_memory = False
 
 
-class SpPredictor:
-    """Order-preserving batched inference for sparse models.
+class _Predictor:
+    """What both predictors share: the device check, the precompute, and
+    the batched eval-mode forward with its predictions unpadded.
+    Subclasses set ``self.pre`` and give :meth:`_loader` and
+    :meth:`_to_dict`."""
 
-    ``SpPredictor(model, partial(KhopSampler, hop=3), keys)`` then
-    ``predictor(graphs) -> (len(graphs), num_tasks)`` as a numpy array.
-    ``keys`` are the model's precompute keys (``parse_precomputekey``).
-    The model must already be on ``device`` (the CUDA card unless the
-    caller passes ``device="cpu"``).
-    """
-
-    def __init__(self, model: nn.Module, tuplesamplers,
-                 keys: Sequence[str], batch_size: int = 128,
-                 num_workers: int = 0, device: DeviceLike = None):
+    def __init__(self, model: nn.Module, batch_size: int, num_workers: int,
+                 device: DeviceLike):
         if num_workers != 0:
             raise NotImplementedError(
                 "host precompute workers are not ported; use num_workers=0")
@@ -77,8 +75,6 @@ class SpPredictor:
             raise ValueError(f"model is on {param.device}, predictor on "
                              f"{self.device}")
         self.model = model
-        self.pre = Sppretransform(tuplesamplers, ("",), keys)
-        self.keys = tuple(keys)
         self.batch_size = batch_size
         self._buckets = Buckets()
 
@@ -92,12 +88,62 @@ class SpPredictor:
             else self.preprocess(graphs)
         set_parity_numerics()
         self.model.eval()
-        loader = SpDataloader(datas, self.batch_size, self.keys)
+        loader = self._loader(datas)
         loader.buckets = self._buckets   # persist shape buckets
         preds = []
         with torch.inference_mode():
             for batch in loader:
-                dd = batch_to_sparse_dict(batch, ("",), self.device)
                 n_real = int(np.asarray(batch["graph_mask"]).sum())
-                preds.append(self.model(dd)[:n_real].cpu().numpy())
+                out = self.model(self._to_dict(batch))
+                preds.append(out[:n_real].cpu().numpy())
         return np.concatenate(preds, axis=0)
+
+
+class SpPredictor(_Predictor):
+    """Order-preserving batched inference for sparse models.
+
+    ``SpPredictor(model, partial(KhopSampler, hop=3), keys)`` then
+    ``predictor(graphs) -> (len(graphs), num_tasks)`` as a numpy array.
+    ``keys`` are the model's precompute keys (``parse_precomputekey``).
+    The model must already be on ``device`` (the CUDA card unless the
+    caller passes ``device="cpu"``).
+    """
+
+    def __init__(self, model: nn.Module, tuplesamplers,
+                 keys: Sequence[str], batch_size: int = 128,
+                 num_workers: int = 0, device: DeviceLike = None):
+        super().__init__(model, batch_size, num_workers, device)
+        self.pre = Sppretransform(tuplesamplers, ("",), keys)
+        self.keys = tuple(keys)
+
+    def _loader(self, datas):
+        return SpDataloader(datas, self.batch_size, self.keys)
+
+    def _to_dict(self, batch):
+        return batch_to_sparse_dict(batch, ("",), self.device)
+
+
+class MaPredictor(_Predictor):
+    """Order-preserving batched inference for dense (masked) models:
+    ``MaPredictor(model, partial(spdsampler, hop=4))`` then
+    ``predictor(graphs) -> (len(graphs), num_tasks)``.  Every batch is
+    padded with empty graphs to ``batch_size``.  Only the dense adjacency
+    is ported (``denseadj=True``)."""
+
+    def __init__(self, model: nn.Module, tuplesamplers,
+                 annotate: Sequence[str] = ("",), batch_size: int = 128,
+                 denseadj: bool = True, num_workers: int = 0,
+                 device: DeviceLike = None):
+        if not denseadj:
+            raise NotImplementedError(
+                "MaPredictor(denseadj=False), the SD mode, is not ported "
+                "yet")
+        super().__init__(model, batch_size, num_workers, device)
+        self.pre = Mapretransform(tuplesamplers, annotate)
+        self.annotate = tuple(annotate)
+
+    def _loader(self, datas):
+        return MaDataloader(datas, self.batch_size, self.annotate)
+
+    def _to_dict(self, batch):
+        return batch_to_dense_dict(batch, self.annotate, self.device)

@@ -1,6 +1,6 @@
 """Training utilities: the learning-rate schedule, the optimizer, the loss
-and the train/eval steps of sparse models (port of
-``pygho_tpu/models/training.py:28-108``).
+and the train/eval steps of sparse and dense models (port of
+``pygho_tpu/models/training.py:28-132``).
 
 The schedule is the reference's cosine annealing with warm restarts and a
 polynomial decay of the restart amplitude
@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..hodata.ma_data import batch_to_dense_dict
 from ..hodata.sp_data import batch_to_sparse_dict
 from .serve import set_parity_numerics
 
@@ -114,6 +115,30 @@ def _device_of(model: nn.Module) -> torch.device:
     return param.device
 
 
+def _make_steps(to_dict: Callable, annotate) -> Tuple[Callable, Callable]:
+    set_parity_numerics()
+
+    def train_step(model: nn.Module, opt: torch.optim.Optimizer,
+                   batch: Dict[str, Any]) -> torch.Tensor:
+        dd = to_dict(batch, annotate, _device_of(model))
+        pred = model(dd)
+        loss = masked_l1_loss(pred, dd["y"], dd["graph_mask"])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    @torch.no_grad()
+    def eval_step(model: nn.Module, batch: Dict[str, Any]) -> torch.Tensor:
+        dd = to_dict(batch, annotate, _device_of(model))
+        pred = model(dd)
+        y = dd["y"].reshape(pred.shape)
+        w = dd["graph_mask"].to(pred.dtype)
+        return torch.stack([((pred - y).abs().mean(-1) * w).sum(), w.sum()])
+
+    return train_step, eval_step
+
+
 def make_sparse_steps(annotate=("",)) -> Tuple[Callable, Callable]:
     """Train and eval steps for sparse models, in the parity mode.
 
@@ -126,24 +151,11 @@ def make_sparse_steps(annotate=("",)) -> Tuple[Callable, Callable]:
     The batch goes to the device of the model's parameters.  The caller
     sets ``model.train()`` or ``model.eval()``, as in the JAX package.
     """
-    set_parity_numerics()
+    return _make_steps(batch_to_sparse_dict, annotate)
 
-    def train_step(model: nn.Module, opt: torch.optim.Optimizer,
-                   batch: Dict[str, Any]) -> torch.Tensor:
-        dd = batch_to_sparse_dict(batch, annotate, _device_of(model))
-        pred = model(dd)
-        loss = masked_l1_loss(pred, dd["y"], dd["graph_mask"])
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        return loss.detach()
 
-    @torch.no_grad()
-    def eval_step(model: nn.Module, batch: Dict[str, Any]) -> torch.Tensor:
-        dd = batch_to_sparse_dict(batch, annotate, _device_of(model))
-        pred = model(dd)
-        y = dd["y"].reshape(pred.shape)
-        w = dd["graph_mask"].to(pred.dtype)
-        return torch.stack([((pred - y).abs().mean(-1) * w).sum(), w.sum()])
-
-    return train_step, eval_step
+def make_dense_steps(annotate=("",)) -> Tuple[Callable, Callable]:
+    """Train and eval steps for dense models (``MaModel``), in the parity
+    mode, with :func:`make_sparse_steps`' contract; the batch comes from
+    ``MaDataloader``."""
+    return _make_steps(batch_to_dense_dict, annotate)

@@ -1,10 +1,13 @@
 """Where a training step of the PyTorch / CUDA port goes, on one CUDA card.
 
-    python3 scripts/trace_train_gpu.py [--steps 5] [--out trace_out]
+    python3 scripts/trace_train_gpu.py [--model ngnn-ss|ppgn-dd]
+                                       [--steps 5] [--out trace_out]
 
-Trains NGNN-SS 6x128 (weights from seed 0, AdamW at lr 1e-3) on 128-graph
-batches of ``synthetic_zinc("train")`` through ``make_sparse_steps``, and
-prints:
+Trains NGNN-SS 6x128 (weights from seed 0, AdamW at lr 1e-3, through
+``make_sparse_steps``) or, with ``--model ppgn-dd``, PPGN-DD 6x128 as
+``chip_smoke.py`` configures it (AdamW at lr 4.5e-3, through
+``make_dense_steps``) on 128-graph batches of ``synthetic_zinc("train")``,
+and prints:
 
 1. the card's name and power limit;
 2. the wall time of a step in the parity mode (deterministic algorithms)
@@ -14,7 +17,8 @@ prints:
    the card, as serving runs it;
 3. a ``torch.profiler`` trace of ``--steps`` parity-mode steps: the
    operators and kernels that take the most device time, the device's
-   busy share of the traced wall time, and the K1 kernels' share.
+   busy share of the traced wall time, and the share of the port's own
+   kernels (K1 or K5).
    The table and the Chrome trace go to ``--out``.
 
 It imports nothing of JAX and needs a card.
@@ -41,6 +45,8 @@ MLPD = {"norm": "bn", "act": "silu", "dp": 0.0}
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("ngnn-ss", "ppgn-dd"),
+                    default="ngnn-ss")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="trace_out")
     args = ap.parse_args()
@@ -53,20 +59,35 @@ def main():
 
     from torch.profiler import ProfilerActivity, profile
 
-    from pygho_tpu_torch.hodata import (KhopSampler, SpDataloader,
-                                        Sppretransform, synthetic_zinc)
-    from pygho_tpu_torch.models import (make_optimizer, make_sp_model,
-                                        make_sparse_steps)
+    from pygho_tpu_torch import hodata
+    from pygho_tpu_torch import models
 
-    pre = Sppretransform(partial(KhopSampler, hop=3), [""], [KEY])
-    datas = [pre(g) for g in synthetic_zinc("train")]
-    batches = list(SpDataloader(datas, 128, [KEY], shuffle=True,
-                                drop_last=True, seed=0, backward=True))
-    model = make_sp_model("NGNN", num_layer=6, hiddim=128, mlp=dict(MLPD),
-                          seed=0, device="cuda")
+    dev = torch.device("cuda")
+    if args.model == "ngnn-ss":
+        pre = hodata.Sppretransform(partial(hodata.KhopSampler, hop=3),
+                                    [""], [KEY])
+        datas = [pre(g) for g in hodata.synthetic_zinc("train")]
+        batches = list(hodata.SpDataloader(datas, 128, [KEY], shuffle=True,
+                                           drop_last=True, seed=0,
+                                           backward=True))
+        model = models.make_sp_model("NGNN", num_layer=6, hiddim=128,
+                                     mlp=dict(MLPD), seed=0, device=dev)
+        opt = models.make_optimizer(model, 1e-3)
+        train_step, _ = models.make_sparse_steps()
+        to_dict, kernel = hodata.batch_to_sparse_dict, "spspmm_sum_kernel"
+    else:
+        import chip_smoke
+
+        pre = hodata.Mapretransform(partial(hodata.spdsampler,
+                                            hop=chip_smoke.DENSE_HOP))
+        datas = [pre(g) for g in hodata.synthetic_zinc("train")]
+        batches = list(hodata.MaDataloader(datas, 128, shuffle=True,
+                                           drop_last=True, seed=0))
+        model = chip_smoke.dense_model(dev)
+        opt = models.make_optimizer(model, chip_smoke.DENSE_LR)
+        train_step, _ = models.make_dense_steps()
+        to_dict, kernel = hodata.batch_to_dense_dict, "cw_bmm_kernel"
     model.train()
-    opt = make_optimizer(model, 1e-3)
-    train_step, _ = make_sparse_steps()
 
     def steps(n):
         """Median wall ms of n synchronised steps."""
@@ -85,9 +106,7 @@ def main():
         torch.use_deterministic_algorithms(det)
         ab.append((det, steps(args.steps)))
     # the same for one eval-mode forward, as a served batch runs it
-    from pygho_tpu_torch.hodata.sp_data import batch_to_sparse_dict
-
-    dd = batch_to_sparse_dict(batches[0], ("",), torch.device("cuda"))
+    dd = to_dict(batches[0], ("",), dev)
     model.eval()
 
     def forwards(n):
@@ -135,12 +154,12 @@ def main():
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(dev_us(e) for e in kernels)
-    k1_us = sum(dev_us(e) for e in kernels if "spspmm_sum_kernel" in e.key)
-    print(f"traced {args.steps} steps: wall {wall_ms:.3f} ms "
+    own_us = sum(dev_us(e) for e in kernels if kernel in e.key)
+    print(f"{args.model}: traced {args.steps} steps: wall {wall_ms:.3f} ms "
           f"({wall_ms / args.steps:.3f} ms a step), device busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / 1e3 / wall_ms:.1%} of the "
-          f"wall), K1 kernels {k1_us / 1e3:.3f} ms "
-          f"({k1_us / max(busy_us, 1e-9):.1%} of the device time)")
+          f"wall), {kernel} {own_us / 1e3:.3f} ms "
+          f"({own_us / max(busy_us, 1e-9):.1%} of the device time)")
     print("kernels with the most device time, per step:")
     for e in sorted(kernels, key=dev_us, reverse=True)[:20]:
         print(f"  {dev_us(e) / 1e3 / args.steps:8.3f} ms  "
@@ -148,7 +167,7 @@ def main():
     ops = [e for e in events
            if e.device_type != torch.autograd.DeviceType.CUDA
            and e.key.startswith(("aten::", "autograd::", "Optimizer",
-                                 "SpspmmSum"))]
+                                 "SpspmmSum", "ChannelwiseBmm"))]
     print("operators with the most device time (their kernels and their "
           "callees' kernels), per step:")
     for e in sorted(ops, key=lambda e: getattr(
@@ -161,18 +180,19 @@ def main():
               f" ms self  {e.key[:80]}")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "trace_train_gpu.txt").write_text(events.table(
+    (out / f"trace_train_gpu_{args.model}.txt").write_text(events.table(
         sort_by="self_cuda_time_total", row_limit=80))
-    prof.export_chrome_trace(str(out / "trace_train_gpu.json"))
+    prof.export_chrome_trace(str(out / f"trace_train_gpu_{args.model}.json"))
     def turns(pairs):
         return {("det_on" if d else "det_off") + f"_{i}": ms
                 for i, (d, ms) in enumerate(pairs)}
 
-    print(json.dumps({"card": card, "step_ms": turns(ab),
+    print(json.dumps({"card": card, "model": args.model,
+                      "step_ms": turns(ab),
                       "eval_forward_ms": turns(fwd_ab),
                       "traced_wall_ms": wall_ms,
                       "device_busy_ms": busy_us / 1e3,
-                      "k1_ms": k1_us / 1e3}))
+                      "own_kernels_ms": own_us / 1e3}))
 
 
 if __name__ == "__main__":
