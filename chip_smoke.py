@@ -9,13 +9,14 @@ Phases, each printing its wall seconds:
 2. build: builds every kernel of the main paths from
    ``pygho_tpu_torch/csrc`` with ``nvcc`` (all sources at once);
 3. kernels: holds each kernel (K1's forward, dX and dA roles; K5's
-   forward, dA and dX roles) against its plain PyTorch version on the
-   card, at the shapes the main paths give it (K1: one 128-graph batch of
-   ``synthetic_zinc("val")``, ``KhopSampler(hop=3)``, D = 128; K5: one
-   128-graph batch, ``spdsampler(hop=4)``, (128, 32, 32, 128)) and on edge
-   cases, holds the ``SpspmmSum`` and ``ChannelwiseBmm`` gradients against
-   autograd through the plain versions, and times kernels, plain versions
-   and, for K5, the library's ``torch.einsum``;
+   forward, dA and dX roles; K4's forward, dw, dc and dv roles) against
+   its plain PyTorch version on the card, at the shapes the main paths
+   give it (K1 and K4: one 128-graph batch of ``synthetic_zinc("val")``,
+   ``KhopSampler(hop=3)``, D = 128; K5: one 128-graph batch,
+   ``spdsampler(hop=4)``, (128, 32, 32, 128)) and on edge cases, holds the
+   ``SpspmmSum``, ``ChannelwiseBmm`` and ``SegmentAttention`` gradients
+   against autograd through the plain versions, and times kernels, plain
+   versions and, for K5, the library's ``torch.einsum``;
 4. serving: serves NGNN-SS 6x128 (weights from a seed) through the port's
    ``SpPredictor`` over three requests, checks that every batch went through
    the forward kernel, that the outputs are finite, ordered and repeatable,
@@ -35,7 +36,14 @@ Phases, each printing its wall seconds:
    ``make_dense_steps``, checks 6 + 6 + 6 K5 launches a step, finite
    losses, a bitwise-identical second run and the CPU's losses over the
    first ``DENSE_CPU_STEPS`` steps; prints graphs/s trained and the peak
-   device memory.
+   device memory;
+8. NGAT serving: serves NGAT-SS 6x128 (``runs/converged/NGAT_sparse.json``,
+   weights from a seed) through ``SpPredictor`` as phase 4 does, with six
+   K4 forward launches per batch and no K1 launch;
+9. NGAT training: trains NGAT-SS 6x128 for ten AdamW steps at lr 1e-3
+   through ``make_sparse_steps`` as phase 5 does, with six launches of
+   each K4 role a step, and the CPU's losses over the first
+   ``NGAT_CPU_STEPS`` steps.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -81,6 +89,32 @@ REPEAT_TOL = 1e-5
 TRAIN_STEPS = 10
 CPU_STEPS = 10
 TRAIN_LR = 1e-3
+# the sparse configurations, weights from seed 0: NGNN-SS 6x128 as
+# example/minimal_tpu.py builds it; NGAT-SS 6x128 as
+# runs/converged/NGAT_sparse.json trains it (6 layers x 128,
+# KhopSampler(hop=3), batch 128, aggr, npool and lpool sum, outlayer 4,
+# mlplayer 2, normparam 0.194), with example/zinc_tpu.py's MLP settings.
+# Both train at lr 1e-3: at the converged run's 1e-2 the reference itself
+# goes NaN within epochs
+SPARSE = {
+    "NGNN": dict(num_layer=6, hiddim=128, mlp=MLPD),
+    "NGAT": dict(num_layer=6, hiddim=128, aggr="sum", npool="sum",
+                 lpool="sum", outlayer=4,
+                 mlp={"dp": 0.0, "norm": "bn", "act": "silu",
+                      "normparam": 0.194, "numlayer": 2, "tailact": True}),
+}
+# the kernel source each sparse configuration's layers launch, six times a
+# batch for each role
+SPARSE_SOURCE = {"NGNN": "spspmm_sum.cu", "NGAT": "segment_attention.cu"}
+# the CPU repeats this many of NGAT's ten steps, each gathering and
+# exponentiating some 60,000 x 128 scores a layer with the plain K4
+NGAT_CPU_STEPS = 5
+# K4 vs its plain version on the card: the same rounded products, maximum
+# and differences, summed in triple order by the kernel and in another
+# order by the plain version's index_add_, and expf against torch.exp (both
+# within 2 ulp); the tolerance of each output is ATT_RTOL * its sum of
+# |terms| (k4_terms)
+ATT_RTOL = 1e-5
 # per-step losses, card vs CPU: f32 without TF32 on both, sums in another
 # order through forward, backward and ten AdamW steps (the JAX package's
 # own ten-step differential against the torch reference held 3e-4)
@@ -374,18 +408,33 @@ def calibrate_batchnorm(model, predictor, datas):
     model.eval()
 
 
-def serve(graphs, rng, dev):
-    """NGNN-SS 6x128 through SpPredictor on ``dev``, then on the CPU."""
+def sparse_model(conv, device):
+    """The sparse configuration ``SPARSE[conv]``, weights from seed 0."""
+    from pygho_tpu_torch.models import make_sp_model
+
+    return make_sp_model(conv, seed=0, device=device,
+                         **copy.deepcopy(SPARSE[conv]))
+
+
+def sparse_roles(conv):
+    """The kernel roles that ``conv``'s layers launch (K1's or K4's)."""
+    from pygho_tpu_torch.kernels import KERNELS
+
+    return [mod for mod in KERNELS if mod.SOURCE.endswith(SPARSE_SOURCE[conv])]
+
+
+def serve(graphs, rng, dev, conv="NGNN"):
+    """``conv``-SS 6x128 through SpPredictor on ``dev``, then on the
+    CPU."""
     import numpy as np
     import torch
 
     from pygho_tpu_torch.hodata import KhopSampler
     from pygho_tpu_torch.honn import parse_precomputekey
     from pygho_tpu_torch.kernels import KERNELS
-    from pygho_tpu_torch.models import SpPredictor, make_sp_model
+    from pygho_tpu_torch.models import SpPredictor
 
-    model = make_sp_model("NGNN", num_layer=6, hiddim=128, mlp=dict(MLPD),
-                          seed=0, device=dev)
+    model = sparse_model(conv, dev)
     keys = parse_precomputekey(model)
     if keys != [KEY]:
         raise AssertionError(f"unexpected precompute keys {keys}")
@@ -412,7 +461,8 @@ def serve(graphs, rng, dev):
           f"batches, {[f'{w:.3f}' for w in walls]} s; kernel launches "
           f"{launches}")
     expected = {mod.NAME: 0 for mod in KERNELS}
-    expected[KERNELS[0].NAME] = 6 * n_batches
+    expected[sparse_roles(conv)[0].NAME] = \
+        SPARSE[conv]["num_layer"] * n_batches
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
 
@@ -487,16 +537,14 @@ def breakdown(model, predictor, datas, dev, reps=5):
           f"wall / {dev_ms:.3f} ms between CUDA events")
 
 
-def train_run(device, batches, steps, per_step=None):
-    """NGNN-SS 6x128 from seed 0, ``steps`` AdamW steps at lr 1e-3 on
+def train_run(device, batches, steps, per_step=None, conv="NGNN"):
+    """``conv``-SS 6x128 from seed 0, ``steps`` AdamW steps at lr 1e-3 on
     ``batches`` through the port's ``make_sparse_steps``.  Returns the
     per-step losses and the model.  ``per_step(i)`` runs after each
     step."""
-    from pygho_tpu_torch.models import (make_optimizer, make_sp_model,
-                                        make_sparse_steps)
+    from pygho_tpu_torch.models import make_optimizer, make_sparse_steps
 
-    model = make_sp_model("NGNN", num_layer=6, hiddim=128, mlp=dict(MLPD),
-                          seed=0, device=device)
+    model = sparse_model(conv, device)
     model.train()
     opt = make_optimizer(model, TRAIN_LR)
     train_step, _ = make_sparse_steps()
@@ -508,11 +556,11 @@ def train_run(device, batches, steps, per_step=None):
     return [float(x) for x in losses], model
 
 
-def training(card, dev):
-    """NGNN-SS 6x128 trains on the card: launch counts per step, finite
+def training(card, dev, conv="NGNN"):
+    """``conv``-SS 6x128 trains on the card: launch counts per step, finite
     losses, two runs bitwise identical, the CPU run's losses within
-    TRAIN_RTOL; then graphs/s trained and a per-step breakdown.  Returns
-    the launches of the first training run."""
+    TRAIN_RTOL; then graphs/s trained, a per-step breakdown and the peak
+    device memory.  Returns the launches of the first training run."""
     import torch
 
     from pygho_tpu_torch.hodata import (KhopSampler, SpDataloader,
@@ -538,18 +586,23 @@ def training(card, dev):
     def read(_):
         counts.append({mod.NAME: mod.launches for mod in KERNELS})
 
+    sync()
+    torch.cuda.reset_peak_memory_stats()
     for mod in KERNELS:
         mod.launches = 0
     t0 = time.perf_counter()
-    losses, model = train_run(dev, batches, TRAIN_STEPS, read)
+    losses, model = train_run(dev, batches, TRAIN_STEPS, read, conv)
     sync()
     run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(counts[-1])
     per_step = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in c}
                 for i, c in enumerate(counts)]
     print(f"trained {TRAIN_STEPS} steps in {run_s:.3f} s; losses "
-          f"{[f'{x:.6f}' for x in losses]}; kernel launches {launches}")
-    want = {mod.NAME: 6 if mod.SOURCE.endswith("spspmm_sum.cu") else 0
+          f"{[f'{x:.6f}' for x in losses]}; kernel launches {launches}; "
+          f"peak device memory {peak / 2 ** 30:.3f} GiB ({peak} bytes)")
+    mine = {mod.NAME for mod in sparse_roles(conv)}
+    want = {mod.NAME: SPARSE[conv]["num_layer"] if mod.NAME in mine else 0
             for mod in KERNELS}
     for i, c in enumerate(per_step):
         if c != want:
@@ -557,7 +610,7 @@ def training(card, dev):
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
 
-    again, model2 = train_run(dev, batches, TRAIN_STEPS)
+    again, model2 = train_run(dev, batches, TRAIN_STEPS, conv=conv)
     state, state2 = model.state_dict(), model2.state_dict()
     same = again == losses and all(torch.equal(state[k], state2[k])
                                    for k in state)
@@ -565,36 +618,37 @@ def training(card, dev):
           f"parameters and buffers bitwise identical: {same}")
     if not same:
         raise AssertionError(f"two runs differ: {losses} vs {again}")
+    del model, model2, state, state2
 
+    cpu_steps = CPU_STEPS if conv == "NGNN" else NGAT_CPU_STEPS
     t0 = time.perf_counter()
-    cpu_losses, _ = train_run("cpu", batches, CPU_STEPS)
+    cpu_losses, _ = train_run("cpu", batches, cpu_steps, conv=conv)
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
-    print(f"card vs CPU (plain versions), {CPU_STEPS} steps in "
+    print(f"card vs CPU (plain versions), the first {cpu_steps} steps in "
           f"{time.perf_counter() - t0:.3f} s on the CPU: max relative loss "
           f"difference {rel:.3e} (tolerance {TRAIN_RTOL:g}); CPU losses "
           f"{[f'{x:.6f}' for x in cpu_losses]}")
     if not rel <= TRAIN_RTOL:
         raise AssertionError(f"card and CPU losses differ by {rel}")
 
-    train_timing(card, dev, datas)
+    train_timing(card, dev, datas, conv=conv)
+    print(f"{conv}-SS 6x128 training: peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB ({peak} bytes) over the first run")
     return launches
 
 
-def train_timing(card, dev, datas, reps=8):
-    """Prints graphs/s trained over one epoch of the loader (collation included,
-    one sync at the end), then one step's breakdown: host collation, the
-    copy to the card, forward+backward and the optimizer step (each
-    synchronised; medians over ``reps`` steps), and forward+backward
-    between CUDA events."""
-    import torch
-
+def train_timing(card, dev, datas, reps=8, conv="NGNN"):
+    """Prints graphs/s trained over one epoch of the loader (collation
+    included, one sync at the end), then one step's breakdown: host
+    collation, the copy to the card, forward+backward and the optimizer
+    step (each synchronised; medians over ``reps`` steps), forward+backward
+    between CUDA events, and a whole step between CUDA events."""
     from pygho_tpu_torch.hodata import SpDataloader
     from pygho_tpu_torch.hodata.sp_data import batch_to_sparse_dict
-    from pygho_tpu_torch.models import (make_optimizer, make_sp_model,
-                                        make_sparse_steps, masked_l1_loss)
+    from pygho_tpu_torch.models import (make_optimizer, make_sparse_steps,
+                                        masked_l1_loss)
 
-    model = make_sp_model("NGNN", num_layer=6, hiddim=128, mlp=dict(MLPD),
-                          seed=0, device=dev)
+    model = sparse_model(conv, dev)
     model.train()
     opt = make_optimizer(model, TRAIN_LR)
     train_step, _ = make_sparse_steps()
@@ -636,14 +690,18 @@ def train_timing(card, dev, datas, reps=8):
         _, s = timed(opt.step)
         parts["optimizer"].append(s)
     dev_ms = time_ms(fwd_bwd, lambda: None, reps=reps, warmup=1)
+    step_ms = time_ms(lambda: train_step(model, opt, batch), lambda: None,
+                      reps=reps, warmup=1)
     med = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
-    print(f"NGNN-SS 6x128 training on {card}: {gps:.1f} graphs/s trained "
+    print(f"{conv}-SS 6x128 training on {card}: {gps:.1f} graphs/s trained "
           f"(one epoch of 8 steps, collation included)")
     print(f"one 128-graph training step (median of {reps}): host "
           f"collation {med['collation']:.3f} ms, copy to the card "
           f"{med['copy']:.3f} ms, forward+backward {med['fwd+bwd']:.3f} ms "
           f"host wall / {dev_ms:.3f} ms between CUDA events, optimizer "
-          f"{med['optimizer']:.3f} ms; sum {sum(med.values()):.3f} ms")
+          f"{med['optimizer']:.3f} ms; sum {sum(med.values()):.3f} ms; a "
+          f"whole step on a collated batch (copy included) {step_ms:.3f} ms "
+          f"between CUDA events")
 
 
 def k5_bound(shape):
@@ -791,6 +849,234 @@ def check_k5(datas, dev, rng, flush):
                        "launches": None, "max_abs_err": errs[role],
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": lib_ms})
+    return report
+
+
+def k4_terms(role, ops, tuv, rows, M, gZ, goZ):
+    """Each output of one K4 role's sum of |terms|, the scale of its
+    rounding: the forward's out Σ α |a3[c]| (α = e / den), den itself
+    and |M|; the gradient roles' sums of |ds| times their two factors,
+    with |ds| <= e (|a3[c] gZ[a]| + |goZ[a]|), and dc's Σ e |gZ[a]|."""
+    import torch
+
+    from pygho_tpu_torch.kernels import segment_attention as k4
+
+    a1, a3, aA, a2 = ops
+    if role is k4.FWD:
+        out_abs, den, M = k4.attention_plain(k4.FWD, a1, a3.abs(), aA, a2,
+                                             tuv, rows)
+        return out_abs, den, M.abs()
+    idx = tuv.long()
+    a, c, d = (idx[i] for i in k4.ACD_POSITIONS[role])
+
+    def ssum(x):
+        return torch.zeros(rows, x.shape[1], device=x.device) \
+            .index_add_(0, idx[0], x)
+
+    e = torch.exp((a1[c] * aA[d]) * a2[a] - M[a])
+    ads = e * (a3[c].abs() * gZ[a].abs() + goZ[a].abs())
+    if role is k4.DW:
+        return (ssum(ads * a1[c].abs() * aA[d].abs()),)
+    if role is k4.DC:
+        return (ssum(ads * aA[d].abs() * a2[a].abs()),
+                ssum(e * gZ[a].abs()))
+    return (ssum(ads * a1[c].abs() * a2[a].abs()),)
+
+
+def k4_bound(role, tuv, rowptr, D):
+    """The least time of one K4 role on the card: every referenced row of
+    each operand it reads once (forward: a2 by t, a1 and a3 by u, aA by v;
+    dw: a2, M, gZ, goZ by t, a1 and a3 by u, aA by v; dc: a1 and a3 by t,
+    a2, M, gZ, goZ by u, aA by v; dv: aA by t, a1 and a3 by u, a2, M, gZ,
+    goZ by v), its index arrays and row pointer once, and every output
+    written once, against its f32 operations (an exp counted as one):
+    per triple and channel 8 in the forward (and a division per output),
+    10 in dw and dv, 12 in dc.  Returns (ms, "bytes" or "operations",
+    bytes, operations)."""
+    import torch
+
+    from pygho_tpu_torch.kernels import segment_attention as k4
+
+    k = tuv.shape[1]
+    out_rows = rowptr.shape[0] - 1
+    t_read = int((rowptr[1:] > rowptr[:-1]).sum())
+    u_read = int(torch.unique(tuv[1]).numel())
+    v_read = int(torch.unique(tuv[2]).numel())
+    per_t, per_u, per_v, n_out, ops = {
+        k4.FWD: (1, 2, 1, 3, 8), k4.DW: (4, 2, 1, 1, 10),
+        k4.DC: (2, 4, 1, 2, 12), k4.DV: (1, 2, 4, 1, 10)}[role]
+    rows = t_read * per_t + u_read * per_u + v_read * per_v \
+        + out_rows * n_out
+    nbytes = rows * D * 4 + k * 2 * 4 + (out_rows + 1) * 4
+    flops = ops * k * D + (out_rows * D if role is k4.FWD else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def check_k4(datas, dev, rng, flush):
+    """K4's four roles at the NGAT path's shapes and on edge cases, against
+    their plain version on the card, and ``SegmentAttention``'s gradients
+    against autograd through the plain forward.  Returns the roles' lines
+    of the report."""
+    import numpy as np
+    import torch
+
+    from pygho_tpu_torch.hodata.loader import (SpDataloader,
+                                               backward_orders, row_pointer)
+    from pygho_tpu_torch.kernels import segment_attention as k4
+
+    batch = next(iter(SpDataloader(datas, 128, [KEY], backward=True)))
+    nt, ne = batch["tupleid"].shape[1], batch["edge_index"].shape[1]
+    n_t, n_e = int(batch["num_tuples"]), int(batch["num_edges"])
+    D = 128
+
+    def operand(rows, real, scale=1.0):
+        x = np.zeros((rows, D), np.float32)
+        x[:real] = scale * rng.normal(size=(real, D))
+        return torch.from_numpy(x).to(dev)
+
+    def grad_inputs(ops, tuv, rowptr, g):
+        """M from the plain forward, and gZ, goZ for the cotangent g, as
+        ``SegmentAttention.backward`` forms them."""
+        out, den, M = k4.attention_plain(k4.FWD, *ops, tuv,
+                                         rowptr.shape[0] - 1)
+        return (M, *k4.softmax_cotangents(g, out, den))
+
+    def compare(role, ops, tuv, rowptr, M=None, gZ=None, goZ=None):
+        """Kernel vs plain version: (max abs error, max error over its
+        tolerance), over every output of the role; raises on a value that
+        is not finite."""
+        rows = rowptr.shape[0] - 1
+        got = k4.attend(role, *ops, tuv, rowptr, M, gZ, goZ)
+        ref = k4.attention_plain(role, *ops, tuv, rows, M, gZ, goZ)
+        mags = k4_terms(role, ops, tuv, rows, M, gZ, goZ)
+        sync()
+        err = ratio = 0.0
+        for x, r, mag in zip(got, ref, mags):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{role.NAME} gave a value that is "
+                                     f"not finite")
+            if x.numel() == 0:
+                continue
+            diff = (x - r).abs()
+            err = max(err, float(diff.max()))
+            ratio = max(ratio, float(
+                (diff / (ATT_RTOL * mag).clamp_min(1e-30)).max()))
+        return err, ratio
+
+    def held(what, err, ratio):
+        print(f"{what}: max abs err {err:.3e}, {ratio:.3f} of the tolerance "
+              f"{ATT_RTOL:g} * sum |terms|")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{what} disagrees with the plain version: "
+                                 f"{err}")
+
+    ops = (operand(nt, n_t), operand(nt, n_t), operand(ne, n_e),
+           operand(nt, n_t))
+    t = {name: torch.from_numpy(batch[f"{KEY}___{name}"]).to(dev)
+         for name in ("acd", "rowptr", "acd_dx", "rowptr_dx", "acd_da",
+                      "rowptr_da")}
+    grads = grad_inputs(ops, t["acd"], t["rowptr"], operand(nt, n_t))
+    main = {k4.FWD: (t["acd"], t["rowptr"]),
+            k4.DW: (t["acd"], t["rowptr"], *grads),
+            k4.DC: (t["acd_dx"], t["rowptr_dx"], *grads),
+            k4.DV: (t["acd_da"], t["rowptr_da"], *grads)}
+    errs = {}
+    for role, args in main.items():
+        errs[role], ratio = compare(role, ops, *args)
+        held(f"{role.NAME} main shape: {args[0].shape[1]} triples, a1 "
+             f"{tuple(ops[0].shape)}, aA {tuple(ops[2].shape)}, out rows "
+             f"{args[1].shape[0] - 1}", errs[role], ratio)
+
+    # edge cases, for every role: empty rows, a row of one triple and one
+    # of 2,000 (its backward orders spread it over many rows); D = 13 and
+    # an a1 one float off 16-byte alignment (both take the scalar loop);
+    # and scores scaled 3x, where the TPU kernel's bound shift flushes
+    x_rows, e_rows = 600, 400
+    rows = np.concatenate([np.full(2000, 5), rng.integers(0, 590, 3000),
+                           [599]])
+    a = np.sort(rows[(rows != 3) & (rows != 17)])
+    acd = np.stack([a, rng.integers(0, x_rows, a.size),
+                    rng.integers(0, e_rows, a.size)])
+    orders = {r: [torch.from_numpy(x).to(dev) for x in v]
+              for r, v in backward_orders(acd, x_rows, e_rows).items()}
+    e_acd = torch.from_numpy(acd.astype(np.int32)).to(dev)
+    e_rp = torch.from_numpy(row_pointer(a, x_rows)).to(dev)
+    for name, Dc, scale, misalign in (
+            ("empty rows, one-triple and 2,000-triple rows, D=128", 128,
+             1.0, False),
+            ("D=13 (scalar loop)", 13, 1.0, False),
+            ("a1 off 16-byte alignment (scalar loop)", 128, 1.0, True),
+            ("scores scaled 3x", 128, 3.0, False)):
+        eops = [torch.from_numpy((scale * rng.normal(size=(n, Dc)))
+                                 .astype(np.float32)).to(dev)
+                for n in (x_rows, x_rows, e_rows, x_rows)]
+        if misalign:
+            flat = torch.empty(x_rows * Dc + 1, device=dev)[1:]
+            eops[0] = flat.view(x_rows, Dc).copy_(eops[0])
+        g = torch.from_numpy(rng.normal(size=(x_rows, Dc))
+                             .astype(np.float32)).to(dev)
+        egrads = grad_inputs(eops, e_acd, e_rp, g)
+        cases = {k4.FWD: (e_acd, e_rp), k4.DW: (e_acd, e_rp, *egrads),
+                 k4.DC: (*orders["dx"], *egrads),
+                 k4.DV: (*orders["da"], *egrads)}
+        for role, args in cases.items():
+            held(f"{role.NAME} edge case {name}", *compare(role, eops, *args))
+        if scale != 1.0:
+            # where the TPU kernel's shift |a2[a]| max|a1| max|aA| lies
+            # more than 60 nats above the row's maximum, its denominator
+            # falls under its floor and the entry comes out 0
+            M = egrads[0]
+            over = eops[3].abs() * (eops[0].abs().amax(0)
+                                    * eops[2].abs().amax(0)) - M
+            live = (e_rp[1:] > e_rp[:-1])[:, None].expand_as(M)
+            print(f"  scaled 3x: {int((over[live] > 60).sum())} of "
+                  f"{int(live.sum())} live (row, channel) entries lie more "
+                  f"than 60 nats under the TPU kernel's shift; every "
+                  f"output here is finite")
+
+    # SegmentAttention's gradients on the card against autograd through the
+    # plain forward, for a random cotangent W
+    W = operand(nt, n_t)
+    bwd = (t["acd_dx"], t["rowptr_dx"], t["acd_da"], t["rowptr_da"])
+    ks = [x.clone().requires_grad_() for x in ops]
+    (k4.SegmentAttention.apply(*ks, t["acd"], t["rowptr"], bwd) * W) \
+        .sum().backward()
+    ps = [x.clone().requires_grad_() for x in ops]
+    (k4.attention_plain(k4.FWD, *ps, t["acd"], nt)[0] * W).sum().backward()
+    with torch.no_grad():
+        wgrads = grad_inputs(ops, t["acd"], t["rowptr"], W)
+        dc = k4_terms(k4.DC, ops, t["acd_dx"], nt, *wgrads)
+        mags = {"grad_a1": dc[0], "grad_a3": dc[1],
+                "grad_aA": k4_terms(k4.DV, ops, t["acd_da"], ne, *wgrads)[0],
+                "grad_a2": k4_terms(k4.DW, ops, t["acd"], nt, *wgrads)[0]}
+    for (what, mag), got, ref in zip(mags.items(), ks, ps):
+        diff = (got.grad - ref.grad).abs()
+        held(f"SegmentAttention {what} vs autograd through the plain "
+             f"forward", float(diff.max()),
+             float((diff / (ATT_RTOL * mag).clamp_min(1e-30)).max()))
+    del ks, ps, W, mags, dc
+
+    report = []
+    for role, args in main.items():
+        tuv, rowptr = args[0], args[1]
+        ms = time_ms(lambda: k4.attend(role, *ops, *args), flush)
+        plain_ms = time_ms(lambda: k4.attention_plain(
+            role, *ops, tuv, rowptr.shape[0] - 1, *args[2:]), flush)
+        warm_ms = time_ms(lambda: k4.attend(role, *ops, *args),
+                          lambda: torch.cuda._sleep(1_000_000))
+        bound_ms, bound_by, nbytes, flops = k4_bound(role, tuv, rowptr, D)
+        print(f"{role.NAME} timing (L2 flushed before each launch, median "
+              f"of 30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, {flops} f32 "
+              f"operations at 67 TFLOP/s); kernel with its inputs left in "
+              f"L2 {warm_ms:.4f} ms")
+        report.append({"name": role.NAME, "route": "cuda",
+                       "source": role.SOURCE, "replaces": role.REPLACES,
+                       "launches": None, "max_abs_err": errs[role],
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": None})
     return report
 
 
@@ -1049,6 +1335,7 @@ def main():
     dense_pre = Mapretransform(partial(spdsampler, hop=DENSE_HOP))
     report += check_k5([dense_pre(g) for g in graphs], dev, rng,
                        flush_buf.zero_)
+    report += check_k4(datas, dev, rng, flush_buf.zero_)
     done("kernels", t0)
 
     t0 = phase("serving")
@@ -1073,14 +1360,27 @@ def main():
     dense_train_launches = train_dense(card, dev)
     done("dense training", t0)
 
-    # launches: each main path's run (sparse serving and training, dense
-    # serving and training), each counted from 0 just before the path and
-    # read just after
+    t0 = phase("NGAT serving")
+    raw_gps, pre_gps, ngat_launches = serve(graphs, rng, dev, "NGAT")
+    print(f"NGAT-SS 6x128 serving on {card}: {raw_gps:.1f} graphs/s from "
+          f"raw graphs (host precompute included), {pre_gps:.1f} graphs/s "
+          f"from preprocessed graphs")
+    done("NGAT serving", t0)
+
+    t0 = phase("NGAT training")
+    ngat_train_launches = training(card, dev, "NGAT")
+    done("NGAT training", t0)
+
+    # launches: each main path's run (NGNN serving and training, dense
+    # serving and training, NGAT serving and training), each counted from
+    # 0 just before the path and read just after
     for line in report:
         line["launches"] = sum(
             run[line["name"]] for run in (launches, train_launches,
                                           dense_launches,
-                                          dense_train_launches))
+                                          dense_train_launches,
+                                          ngat_launches,
+                                          ngat_train_launches))
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": report}))

@@ -1,6 +1,6 @@
-"""High-order GNN layers (port of ``NGNNConv`` and ``PPGNConv`` from
-``pygho_tpu/honn/conv.py``).  The MLPs are mask-aware: padded rows and
-padded dense slots never enter batch-norm statistics."""
+"""High-order GNN layers (port of ``NGNNConv``, ``PPGNConv`` and
+``NGATConv`` from ``pygho_tpu/honn/conv.py``).  The MLPs are mask-aware:
+padded rows and padded dense slots never enter batch-norm statistics."""
 
 from __future__ import annotations
 
@@ -11,8 +11,10 @@ from torch import nn
 
 from ..backend.matensor import MaskedTensor
 from ..backend.sptensor import SparseTensor
+from ..kernels.segment_attention import SegmentAttention
 from . import tensorop as TensorOp
-from .utils import MLP
+from .sp_operator import OpMessagePassing, _fetch, fetch_backward_orders
+from .utils import MLP, make_linear
 
 Tensorish = Union[SparseTensor, MaskedTensor]
 
@@ -60,3 +62,57 @@ class PPGNConv(nn.Module):
                 datadict: Dict) -> Tensorish:
         return self.op(_apply(X, self.lin1), _apply(X, self.lin2),
                        datadict, X)
+
+
+class NGATConv(nn.Module):
+    """Attention-based nested-subgraph layer (subgraph GAT), sparse ("SS")
+    mode: per-channel scores, a softmax over each target tuple's
+    in-neighbourhood, and the weighted sum,
+
+        alpha_{ij<-ik} = softmax_k(att1(X_ik) * attA(A_kj) * att2(X_ij))
+        X'_ij          = sum_k alpha * att3(X_ik)
+
+    over the triples of ``X___X___1___A___0``, with ``X = MLP(X)`` first.
+    The four projections run on rows, not on gathered triples (they are
+    row-wise maps, so they commute with the gathers), and the whole
+    score -> softmax -> aggregate chain is K4
+    (``kernels/segment_attention.py``), whose softmax takes each row's
+    exact maximum as its shift.  Only ``aggr="sum"``, the "SS" mode and an
+    adjacency with edge values are ported."""
+
+    def __init__(self, indim: int, outdim: int, aggr: str = "sum",
+                 mode: str = "SS", mlp: dict = {}, optuplefeat: str = "X",
+                 opadj: str = "A", *, generator: torch.Generator):
+        super().__init__()
+        if mode != "SS":
+            raise NotImplementedError(
+                f"NGATConv is sparse-only; mode {mode!r} is not ported")
+        if aggr != "sum":
+            raise NotImplementedError(
+                f"NGATConv aggr {aggr!r} is not ported yet")
+        self.att1 = make_linear(indim, outdim, generator=generator)
+        self.attA = make_linear(indim, outdim, generator=generator)
+        self.att2 = make_linear(indim, outdim, generator=generator)
+        self.att3 = make_linear(indim, outdim, generator=generator)
+        self.lin = MLP(indim, outdim, generator=generator, **mlp)
+        # declares the precompute key for parse_precomputekey; the layer
+        # reads the key's triples itself
+        self.keyop = OpMessagePassing(optuplefeat, optuplefeat, 1, opadj, 0,
+                                      aggr)
+
+    def forward(self, A: SparseTensor, X: SparseTensor,
+                datadict: Dict) -> SparseTensor:
+        if A.values is None:
+            raise NotImplementedError(
+                "NGATConv needs edge values (attA); an adjacency without "
+                "them is not ported")
+        tX = _apply(X, self.lin)
+        key = self.keyop.precomputekey
+        xv = tX.values
+        out = SegmentAttention.apply(
+            self.att1(xv), self.att3(xv), self.attA(A.values),
+            self.att2(xv), _fetch(datadict, key, "acd"),
+            _fetch(datadict, key, "rowptr"),
+            fetch_backward_orders(datadict, key))
+        return SparseTensor(indices=tX.indices, values=out, nnz=tX.nnz,
+                            sparse_shape=tX.sparse_shape)

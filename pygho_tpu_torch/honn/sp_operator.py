@@ -41,6 +41,14 @@ def _fetch(datadict: Dict, key: str, what: str) -> torch.Tensor:
     return val
 
 
+def fetch_backward_orders(datadict: Dict, key: str):
+    """The backward roles' triples and row pointers of ``key``, or None
+    where the batch has none (a serving batch)."""
+    bwd = tuple(datadict.get(f"{key}{KEYSEP}{what}") for what in
+                ("acd_dx", "rowptr_dx", "acd_da", "rowptr_da"))
+    return None if any(t is None for t in bwd) else bwd
+
+
 class OpMessagePassing(nn.Module):
     """Tuple message passing through ``spspmm`` on host-built triples
     (reference SpOperator.py:88-183).  Only sum aggregation is ported."""
@@ -59,13 +67,10 @@ class OpMessagePassing(nn.Module):
     def forward(self, A: SparseTensor, B: SparseTensor, datadict: Dict,
                 tarX: SparseTensor) -> SparseTensor:
         key = self.precomputekey
-        bwd = tuple(datadict.get(f"{key}{KEYSEP}{what}") for what in
-                    ("acd_dx", "rowptr_dx", "acd_da", "rowptr_da"))
         return spspmm(A, self.dim1, B, self.dim2, self.aggr,
                       acd=_fetch(datadict, key, "acd"),
                       rowptr=_fetch(datadict, key, "rowptr"),
-                      tarX=tarX,
-                      bwd=None if any(t is None for t in bwd) else bwd)
+                      tarX=tarX, bwd=fetch_backward_orders(datadict, key))
 
 
 class OpMessagePassingOnSubg2D(OpMessagePassing):

@@ -7,8 +7,8 @@ the order the main paths reach them: each entry carries ``NAME``,
 the place of) and a ``launches`` counter.
 """
 
-from . import channelwise_bmm, spspmm_sum
+from . import channelwise_bmm, segment_attention, spspmm_sum
 
-KERNELS = spspmm_sum.ROLES + channelwise_bmm.ROLES
+KERNELS = spspmm_sum.ROLES + channelwise_bmm.ROLES + segment_attention.ROLES
 
-__all__ = ["KERNELS", "channelwise_bmm", "spspmm_sum"]
+__all__ = ["KERNELS", "channelwise_bmm", "segment_attention", "spspmm_sum"]

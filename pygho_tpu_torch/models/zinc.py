@@ -1,7 +1,7 @@
 """ZINC-style HOGNN models (port of ``InputEncoderSp``, ``SpModel``,
 ``make_sp_model``, ``InputEncoderMa``, ``MaModel`` and ``make_ma_model``
-from ``pygho_tpu/models/zinc.py``; NGNN in sparse mode and PPGN in dense
-mode, f32).
+from ``pygho_tpu/models/zinc.py``; NGNN and NGAT in sparse mode and PPGN
+in dense mode, f32).
 
 ``SpModel`` takes the datadict of ``hodata.batch_to_sparse_dict``,
 ``MaModel`` that of ``hodata.batch_to_dense_dict``; both return
@@ -63,9 +63,20 @@ class InputEncoderSp(nn.Module):
         return datadict
 
 
+def _sp_convdict(aggr: str, mlp: dict, generator: torch.Generator):
+    """Sparse conv factories (the ported part of the JAX package's
+    ``_sp_convdict``)."""
+    return {
+        "NGNN": lambda d: Conv.NGNNConv(d, d, aggr, "SS", mlp,
+                                        generator=generator),
+        "NGAT": lambda d: Conv.NGATConv(d, d, aggr, "SS", mlp,
+                                        generator=generator),
+    }
+
+
 class SpModel(nn.Module):
     """Sparse HOGNN for graph regression (reference
-    example/zinc.py:225-294).  Only the NGNN conv is ported.
+    example/zinc.py:225-294).  The NGNN and NGAT convs are ported.
 
     forward(datadict) -> (num_graphs, num_tasks)
     """
@@ -77,12 +88,14 @@ class SpModel(nn.Module):
                  mlp: Optional[dict] = None, *,
                  generator: torch.Generator):
         super().__init__()
-        if conv != "NGNN":
-            raise NotImplementedError(
-                f"conv {conv!r} is not ported yet; available: ['NGNN']")
         mlp = dict(mlp or {})
         mlp.setdefault("numlayer", 1)
         mlp.setdefault("tailact", True)
+        convdict = _sp_convdict(aggr, mlp, generator)
+        if conv not in convdict:
+            raise NotImplementedError(
+                f"conv {conv!r} is not ported yet; available: "
+                f"{sorted(convdict)}")
         self.conv_name = conv
         self.hiddim = hiddim
         self.num_tasks = num_tasks
@@ -92,8 +105,7 @@ class SpModel(nn.Module):
         self.lin_tupleinit0 = make_linear(hiddim, hiddim, generator=generator)
         self.lin_tupleinit1 = make_linear(hiddim, hiddim, generator=generator)
         self.subggnns = nn.ModuleList(
-            [Conv.NGNNConv(hiddim, hiddim, aggr, "SS", mlp,
-                           generator=generator) for _ in range(num_layer)])
+            [convdict[conv](hiddim) for _ in range(num_layer)])
         self.lpool = TensorOp.OpPoolingSubg2D("S", lpool)
         head = {k: v for k, v in mlp.items()
                 if k not in ("numlayer", "tailact")}
