@@ -43,7 +43,14 @@ Phases, each printing its wall seconds:
 9. NGAT training: trains NGAT-SS 6x128 for ten AdamW steps at lr 1e-3
    through ``make_sparse_steps`` as phase 5 does, with six launches of
    each K4 role a step, and the CPU's losses over the first
-   ``NGAT_CPU_STEPS`` steps.
+   ``NGAT_CPU_STEPS`` steps;
+10. giant training: trains one giant graph (``example/giant_graph_gpu.py``
+   at 200 communities x 100 nodes, hiddim 128, 3 layers, lr 1e-4) for ten
+   SGD steps through ``parallel/giant.py``, checks three K3 forward and
+   three dX launches a step and nothing else, finite losses, a
+   bitwise-identical second run and the CPU's losses over
+   ``GIANT_CPU_STEPS`` steps; prints ms a step, the plan's host time and
+   the peak device memory.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -136,6 +143,21 @@ DENSE_SERVE_TOL = 1e-4
 # at batch 128 takes tens of seconds on the CPU with the plain K5
 DENSE_CPU_STEPS = 3
 DENSE_TRAIN_RTOL = 1e-3
+# the giant graph of example/giant_graph_gpu.py as example/giant_graph_tpu.py
+# runs it on one chip: bench_scaling.py's 200x100 community graph (RCM,
+# hop-1 tuples, 556,515 contraction triples), hiddim 128, 3 layers, plain
+# SGD at lr 1e-4, ten steps on the card, twice, and on the CPU
+GIANT = dict(communities=200, csize=100, hiddim=128, num_layer=3, lr=1e-4)
+GIANT_STEPS = 10
+GIANT_CPU_STEPS = 10
+# per-step losses, card vs CPU: f32 without TF32 on both; the loss is a mean
+# over 20,000 nodes of squared errors whose sums (the contraction, the root
+# pooling, the readout) run in other orders, each off by a few f32 ulps;
+# plain SGD at lr 1e-4 moves the parameters by 1e-4 of their gradients, so
+# a difference does not grow as AdamW's normalised steps let it grow (the
+# other sparse paths' TRAIN_RTOL of 1e-3); 1e-4 relative leaves a margin of
+# about 100 over f32 rounding of such a mean
+GIANT_RTOL = 1e-4
 # K5 vs its plain version on the card: the same rounded f32 products summed
 # in the same order, so they should agree exactly; the tolerance of each
 # output is K5_RTOL * sum |A[b,i,k,d] * X[b,k,j,d]| over its k
@@ -1080,6 +1102,291 @@ def check_k4(datas, dev, rng, flush):
     return report
 
 
+def giant_instance():
+    """The giant graph of ``example/giant_graph_gpu.py`` at GIANT's size,
+    as numpy arrays (graph, tuples, triples, inputs from one seed)."""
+    sys.path.insert(0, str(REPO / "example"))
+    from giant_graph_gpu import giant_instance as build
+
+    return build(GIANT["communities"], GIANT["csize"], GIANT["hiddim"])
+
+
+def check_k3(inst, dev, rng, flush):
+    """K3's three roles at the giant graph's shapes (hop-1 triples of the
+    RCM-ordered 200x100 community graph, D = 128) and on edge cases,
+    against their plain version on the card; ``WindowSpspmmSum``'s
+    gradients, with both operands requiring grad, against autograd through
+    the plain version; and the roles' times beside K1's three roles on the
+    same triples.  Returns the roles' lines of the report."""
+    import numpy as np
+    import torch
+
+    from pygho_tpu_torch.hodata.loader import backward_orders, row_pointer
+    from pygho_tpu_torch.kernels import spspmm_sum as k1
+    from pygho_tpu_torch.kernels import window_spspmm as k3
+
+    acd, nnz, ne = inst["acd"], inst["nnz_pad"], inst["Av"].shape[0]
+    n_t = inst["tup"].shape[1]
+    D = GIANT["hiddim"]
+    t0 = time.perf_counter()
+    host = k3.build_window_plans(acd, nnz, ne, nnz)
+    plan_s = time.perf_counter() - t0
+    plans = [p.to(dev) for p in host]
+    print(f"K3 plans of the giant graph ({acd.shape[1]} triples, {nnz} tuple "
+          f"rows, {ne} edge rows) built in {plan_s:.3f} s on the host: "
+          + "; ".join(f"{r.NAME}: {p.n_groups} groups, {p.n_windows} "
+                      f"windows of at most {p.max_rows} rows "
+                      f"({int(p.win_rows.sum())} rows staged), {p.n_pieces} "
+                      f"pieces" for r, p in zip(k3.ROLES, host)))
+
+    def operand(rows, real):
+        x = np.zeros((rows, D), np.float32)
+        x[:real] = rng.normal(size=(real, D))
+        return torch.from_numpy(x).to(dev)
+
+    X, A, g = operand(nnz, n_t), operand(ne, ne), operand(nnz, n_t)
+    main = {k3.FWD: (X, A, plans[0]), k3.DX: (g, A, plans[1]),
+            k3.DA: (X, g, plans[2])}
+
+    def compare(role, U, V, plan):
+        """Kernel vs plain version: (max abs error, max error over its
+        tolerance); raises where a row with no triples is not 0."""
+        out = k3.contract(role, U, V, plan)
+        ref = k1.contract_plain(U, V, plan.tuv, plan.out_rows)
+        mag = k1.contract_plain(U.abs(), V.abs(), plan.tuv, plan.out_rows)
+        sync()
+        if out.numel() == 0:
+            return 0.0, 0.0
+        empty = torch.bincount(plan.tuv[0].long(),
+                               minlength=plan.out_rows) == 0
+        if bool((out[empty] != 0).any()):
+            raise AssertionError(f"{role.NAME} wrote a non-zero empty row")
+        diff = (out - ref).abs()
+        return (float(diff.max()),
+                float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max()))
+
+    def held(what, err, ratio):
+        print(f"{what}: max abs err {err:.3e}, {ratio:.3f} of the tolerance "
+              f"{KERNEL_RTOL:g} * sum |terms|")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{what} disagrees with the plain version: "
+                                 f"{err}")
+
+    errs = {}
+    for role, args in main.items():
+        errs[role], ratio = compare(role, *args)
+        held(f"{role.NAME} giant shape ({args[2].tuv.shape[1]} triples, "
+             f"out {(args[2].out_rows, D)})", errs[role], ratio)
+
+    # edge cases, for every role: rows with no triples, a row whose triples
+    # span three and more windows, a window at the end of V, single-row
+    # groups, D = 13 and D = 40 (a partial slice of channels), the largest
+    # window a block can stage (1,816 rows, 232,448 bytes), no triples
+    t_ = np.sort(rng.integers(0, 300, 3000))
+    t_ = t_[(t_ != 3) & (t_ != 150)]
+    v_ = rng.integers(0, 2000, t_.size)
+    v_[t_ == 7] = np.arange(int((t_ == 7).sum())) * 97 % 2000
+    v_[-1] = 1999
+    tuv = np.stack([t_, rng.integers(0, 400, t_.size), v_])
+    dense = np.stack([np.sort(rng.integers(0, 64, 4000)),
+                      rng.integers(0, 400, 4000), rng.integers(0, 1816, 4000)])
+    cases = {
+        "empty rows, a row over 3+ windows, the end of V, D=128":
+            (128, tuv, 300, 2000, dict(cap=64)),
+        "single-row groups, D=13": (13, tuv, 300, 2000,
+                                    dict(cap=256, group_triples=1)),
+        "D=40 (a partial slice)": (40, tuv, 300, 2000, dict(cap=100)),
+        "one 1,816-row window (232,448 bytes)": (128, dense, 64, 1816,
+                                                  dict(cap=1816)),
+        "no triples": (128, np.zeros((3, 0), np.int64), 10, 10, {}),
+    }
+    for role in k3.ROLES:
+        for name, (Dc, tuv_c, o_rows, v_rows, kw) in cases.items():
+            plan = k3.build_window_plan(tuv_c, o_rows, 400, v_rows, **kw)
+            Uc = torch.from_numpy(rng.normal(size=(400, Dc))
+                                  .astype(np.float32)).to(dev)
+            Vc = torch.from_numpy(rng.normal(size=(v_rows, Dc))
+                                  .astype(np.float32)).to(dev)
+            held(f"{role.NAME} edge case {name} ({plan.n_windows} windows)",
+                 *compare(role, Uc, Vc, plan.to(dev)))
+
+    # WindowSpspmmSum's gradients against autograd through the plain
+    # version, both operands requiring grad (so the dA role runs)
+    W = operand(nnz, n_t)
+    for mod in k3.ROLES:
+        mod.launches = 0
+    Xk, Ak = X.clone().requires_grad_(), A.clone().requires_grad_()
+    (k3.WindowSpspmmSum.apply(Xk, Ak, plans) * W).sum().backward()
+    ran = {mod.NAME: mod.launches for mod in k3.ROLES}
+    if set(ran.values()) != {1}:
+        raise AssertionError(f"WindowSpspmmSum launched {ran}")
+    Xp, Ap = X.clone().requires_grad_(), A.clone().requires_grad_()
+    (k1.contract_plain(Xp, Ap, plans[0].tuv, nnz) * W).sum().backward()
+    with torch.no_grad():
+        mags = (k1.contract_plain(W.abs(), A.abs(), plans[1].tuv, nnz),
+                k1.contract_plain(X.abs(), W.abs(), plans[2].tuv, ne))
+    for what, got, ref, mag in (("grad_X", Xk.grad, Xp.grad, mags[0]),
+                                ("grad_A", Ak.grad, Ap.grad, mags[1])):
+        diff = (got - ref).abs()
+        held(f"WindowSpspmmSum {what} vs autograd through the plain version",
+             float(diff.max()),
+             float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max()))
+
+    # K1's three roles on the same triples: the yardstick
+    a = acd[0]
+    orders = backward_orders(acd, nnz, ne)
+
+    def k1_args(*xs):
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                for x in xs]
+
+    on_k1 = {k1.FWD: (X, A, *k1_args(acd.astype(np.int32),
+                                     row_pointer(a, nnz))),
+             k1.DX: (g, A, *k1_args(*orders["dx"])),
+             k1.DA: (X, g, *k1_args(*orders["da"]))}
+    report, k1_lines = [], []
+    for role, r1 in zip(k3.ROLES, k1.ROLES):
+        U, V, plan = main[role]
+        k1_out = k1.contract(r1, *on_k1[r1])
+        k1_err = float((k1_out - k1.contract_plain(
+            U, V, plan.tuv, plan.out_rows)).abs().max())
+        ms = time_ms(lambda: k3.contract(role, U, V, plan), flush)
+        k1_ms = time_ms(lambda: k1.contract(r1, *on_k1[r1]), flush)
+        torch.use_deterministic_algorithms(False)
+        plain_ms = time_ms(lambda: k1.contract_plain(U, V, plan.tuv,
+                                                     plan.out_rows), flush)
+        torch.use_deterministic_algorithms(True)
+        warm_ms = time_ms(lambda: k3.contract(role, U, V, plan),
+                          lambda: torch.cuda._sleep(1_000_000))
+        k1_warm_ms = time_ms(lambda: k1.contract(r1, *on_k1[r1]),
+                             lambda: torch.cuda._sleep(1_000_000))
+        bound_ms, bound_by, nbytes, flops = k1_bound(plan.tuv,
+                                                     plan.out_rows, D)
+        print(f"{role.NAME} timing at the giant shape (L2 flushed before "
+              f"each launch, median of 30): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; K1 {r1.NAME} on the same triples "
+              f"{k1_ms:.4f} ms (max abs err {k1_err:.3e}); bound "
+              f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, {flops} f32 "
+              f"operations at 67 TFLOP/s); inputs left in L2: K3 "
+              f"{warm_ms:.4f} ms, K1 {k1_warm_ms:.4f} ms")
+        k1_lines.append({"name": r1.NAME, "ms": k1_ms, "warm_ms": k1_warm_ms,
+                         "k3": role.NAME, "k3_ms": ms, "bound_ms": bound_ms})
+        report.append({"name": role.NAME, "route": "cuda",
+                       "source": role.SOURCE, "replaces": role.REPLACES,
+                       "launches": None, "max_abs_err": errs[role],
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": None})
+    print(json.dumps({"k1_at_giant_shapes": k1_lines}))
+    return report
+
+
+def giant_train_run(device, inst, plan, steps, per_step=None):
+    """The giant stack from seed 0, ``steps`` SGD steps on ``device``.
+    Returns the per-step losses and the model."""
+    import torch
+
+    from pygho_tpu_torch.parallel import (init_giant_params,
+                                          make_giant_graph_step)
+
+    model = init_giant_params(GIANT["num_layer"], GIANT["hiddim"], seed=0,
+                              device=device)
+    _, step = make_giant_graph_step(plan, GIANT["num_layer"],
+                                    lr=GIANT["lr"], device=device)
+    Xv, Av, y = (torch.from_numpy(inst[k]).to(device)
+                 for k in ("Xv", "Av", "y"))
+    losses = []
+    for i in range(steps):
+        losses.append(step(model, Xv, Av, y))
+        if per_step is not None:
+            per_step(i)
+    return [float(x) for x in losses], model, (step, Xv, Av, y)
+
+
+def train_giant(card, dev, inst):
+    """The giant graph trains on the card through ``parallel/giant.py``:
+    three K3 forward and three dX launches a step and nothing else, finite
+    losses, two runs bitwise identical, the CPU's losses within
+    GIANT_RTOL; then ms a step, the plan's host time and the peak device
+    memory.  Returns the launches of the first run."""
+    import torch
+
+    from pygho_tpu_torch.kernels import KERNELS
+    from pygho_tpu_torch.kernels import window_spspmm as k3
+    from pygho_tpu_torch.parallel import build_giant_graph_plan
+
+    t0 = time.perf_counter()
+    plan = build_giant_graph_plan(inst["acd_pad"], inst["tupleid"],
+                                  inst["nnz_pad"], inst["n"], 1,
+                                  n_edge_rows=inst["Av"].shape[0],
+                                  plan_dim=GIANT["hiddim"])
+    plan_s = time.perf_counter() - t0
+    print(f"giant graph: {inst['n']} nodes, {inst['edge_index'].shape[1]} "
+          f"edges, {inst['tup'].shape[1]} tuples (padded to "
+          f"{inst['nnz_pad']}), {inst['acd'].shape[1]} triples; plan built in "
+          f"{plan_s:.3f} s on the host")
+
+    counts = []
+
+    def read(_):
+        counts.append({mod.NAME: mod.launches for mod in KERNELS})
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in KERNELS:
+        mod.launches = 0
+    t0 = time.perf_counter()
+    losses, model, (step, Xv, Av, y) = giant_train_run(
+        dev, inst, plan, GIANT_STEPS, read)
+    sync()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(counts[-1])
+    per_step = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in c}
+                for i, c in enumerate(counts)]
+    print(f"trained {GIANT_STEPS} steps in {run_s:.3f} s (the first "
+          f"includes moving the plan); losses {[f'{x:.7f}' for x in losses]}; "
+          f"kernel launches {launches}; peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB ({peak} bytes)")
+    want = {mod.NAME: 0 for mod in KERNELS}
+    want[k3.FWD.NAME] = want[k3.DX.NAME] = GIANT["num_layer"]
+    for i, c in enumerate(per_step):
+        if c != want:
+            raise AssertionError(f"step {i} launched {c}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+
+    again, model2, _ = giant_train_run(dev, inst, plan, GIANT_STEPS)
+    same = again == losses and all(
+        torch.equal(p, q) for p, q in zip(model.parameters(),
+                                          model2.parameters()))
+    print(f"second run from the same seed: losses and all "
+          f"{len(list(model.parameters()))} parameters bitwise identical: "
+          f"{same}")
+    if not same:
+        raise AssertionError(f"two runs differ: {losses} vs {again}")
+    del model2
+    # a step's time, on the first run's model (its steps go on training it)
+    step_ms = time_ms(lambda: step(model, Xv, Av, y), lambda: None,
+                      reps=10, warmup=2)
+    del model
+
+    t0 = time.perf_counter()
+    cpu_losses, _, _ = giant_train_run("cpu", inst, plan, GIANT_CPU_STEPS)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    print(f"card vs CPU (plain versions), the first {GIANT_CPU_STEPS} steps "
+          f"in {time.perf_counter() - t0:.3f} s on the CPU: max relative "
+          f"loss difference {rel:.3e} (tolerance {GIANT_RTOL:g}); CPU losses "
+          f"{[f'{x:.7f}' for x in cpu_losses]}")
+    if not rel <= GIANT_RTOL:
+        raise AssertionError(f"card and CPU losses differ by {rel}")
+    print(f"giant graph {GIANT['communities']}x{GIANT['csize']}, hiddim "
+          f"{GIANT['hiddim']}, {GIANT['num_layer']} layers on {card}: "
+          f"{step_ms:.3f} ms a step between CUDA events (median of 10); "
+          f"plan {plan_s:.3f} s on the host; peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB")
+    return launches
+
+
 def dense_model(device):
     """PPGN-DD as DENSE configures it, weights from seed 0."""
     from pygho_tpu_torch.models import make_ma_model
@@ -1336,6 +1643,11 @@ def main():
     report += check_k5([dense_pre(g) for g in graphs], dev, rng,
                        flush_buf.zero_)
     report += check_k4(datas, dev, rng, flush_buf.zero_)
+    t1 = time.perf_counter()
+    giant = giant_instance()
+    print(f"giant graph built in {time.perf_counter() - t1:.3f} s on the "
+          f"host (RCM, hop-1 tuples and triples, inputs)")
+    report += check_k3(giant, dev, rng, flush_buf.zero_)
     done("kernels", t0)
 
     t0 = phase("serving")
@@ -1371,16 +1683,22 @@ def main():
     ngat_train_launches = training(card, dev, "NGAT")
     done("NGAT training", t0)
 
+    t0 = phase("giant training")
+    giant_launches = train_giant(card, dev, giant)
+    done("giant training", t0)
+
     # launches: each main path's run (NGNN serving and training, dense
-    # serving and training, NGAT serving and training), each counted from
-    # 0 just before the path and read just after
+    # serving and training, NGAT serving and training, giant-graph
+    # training), each counted from 0 just before the path and read just
+    # after
     for line in report:
         line["launches"] = sum(
             run[line["name"]] for run in (launches, train_launches,
                                           dense_launches,
                                           dense_train_launches,
                                           ngat_launches,
-                                          ngat_train_launches))
+                                          ngat_train_launches,
+                                          giant_launches))
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": report}))

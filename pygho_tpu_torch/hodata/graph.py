@@ -49,3 +49,25 @@ class Graph:
         return ssp.coo_matrix(
             (np.ones(m), (self.edge_index[0], self.edge_index[1])),
             shape=(self.num_nodes, self.num_nodes)).tocsr()
+
+
+def rcm_reorder(graph: Graph) -> Graph:
+    """Relabel the nodes in reverse Cuthill-McKee order (port of
+    ``pygho_tpu/hodata/graph.py:rcm_reorder``).
+
+    RCM keeps a node's neighbours at nearby labels, so the rows a tuple's
+    contraction reads lie in a narrow range, which the window kernel
+    (``kernels/window_spspmm.py``) stages once per range.  As in the JAX
+    package, ``x`` is permuted and the edge list is relabelled in place,
+    not re-sorted: its order (and so every edge id) stays the input's.
+    """
+    import scipy.sparse as ssp
+    import scipy.sparse.csgraph  # noqa: F401  (binds ssp.csgraph)
+
+    perm = ssp.csgraph.reverse_cuthill_mckee(graph.to_scipy_csr(),
+                                             symmetric_mode=True)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(graph.num_nodes)
+    return dataclasses.replace(graph, x=graph.x[perm],
+                               edge_index=inv[graph.edge_index],
+                               edge_attr=graph.edge_attr)

@@ -7,8 +7,10 @@ the order the main paths reach them: each entry carries ``NAME``,
 the place of) and a ``launches`` counter.
 """
 
-from . import channelwise_bmm, segment_attention, spspmm_sum
+from . import channelwise_bmm, segment_attention, spspmm_sum, window_spspmm
 
-KERNELS = spspmm_sum.ROLES + channelwise_bmm.ROLES + segment_attention.ROLES
+KERNELS = (spspmm_sum.ROLES + channelwise_bmm.ROLES + segment_attention.ROLES
+           + window_spspmm.ROLES)
 
-__all__ = ["KERNELS", "channelwise_bmm", "segment_attention", "spspmm_sum"]
+__all__ = ["KERNELS", "channelwise_bmm", "segment_attention", "spspmm_sum",
+           "window_spspmm"]

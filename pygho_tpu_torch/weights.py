@@ -12,6 +12,13 @@ onto a parameter or buffer of the same dotted name, with these changes:
 - ``Linear.kernel`` ``(in, out)`` -> ``weight`` ``(out, in)``, transposed;
 - ``Embed.embedding`` -> ``weight``;
 - ``BatchNorm`` ``scale``/``bias``/``mean``/``var`` keep their names.
+
+A plain parameter tree of nested dicts and lists, such as
+``pygho_tpu.parallel.init_giant_params``'s, flattens to such paths with
+:func:`flatten_params` (after ``jax.tree.map(np.asarray, tree)`` on the
+caller's side).  The giant-graph stack (``parallel.giant.GiantNGNN``)
+keeps that tree's names and layout: its ``w`` is ``(in, out)`` and is
+named ``w``, not ``kernel``, so it is copied as it is, not transposed.
 """
 
 from __future__ import annotations
@@ -27,6 +34,21 @@ Path = Union[str, Tuple]
 
 def _dotted(path: Path) -> str:
     return path if isinstance(path, str) else ".".join(str(p) for p in path)
+
+
+def flatten_params(tree, prefix: Tuple = ()) -> dict:
+    """``{path: array}`` of a tree of nested dicts, lists and tuples of
+    arrays, each path the tuple of keys and list indices down to it."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    flat = {}
+    for key, sub in items:
+        flat.update(flatten_params(sub, prefix + (key,)))
+    return flat
 
 
 def load_jax_params(model: nn.Module,

@@ -1,14 +1,16 @@
 """Where a training step of the PyTorch / CUDA port goes, on one CUDA card.
 
-    python3 scripts/trace_train_gpu.py [--model ngnn-ss|ngat-ss|ppgn-dd]
-                                       [--steps 5] [--out trace_out]
+    python3 scripts/trace_train_gpu.py
+        [--model ngnn-ss|ngat-ss|ppgn-dd|giant] [--steps 5] [--out trace_out]
 
 Trains NGNN-SS 6x128 (weights from seed 0, AdamW at lr 1e-3, through
 ``make_sparse_steps``), with ``--model ngat-ss`` NGAT-SS 6x128 and with
 ``--model ppgn-dd`` PPGN-DD 6x128, both as ``chip_smoke.py`` configures
 them (AdamW at lr 1e-3 and 4.5e-3, through ``make_sparse_steps`` and
-``make_dense_steps``), on 128-graph batches of ``synthetic_zinc("train")``,
-and prints:
+``make_dense_steps``), on 128-graph batches of ``synthetic_zinc("train")``;
+with ``--model giant`` the giant graph of ``chip_smoke.py`` (200 x 100
+communities, hiddim 128, 3 layers, SGD at lr 1e-4, through
+``parallel/giant.py``), whose "eval forward" is its loss; and prints:
 
 1. the card's name and power limit;
 2. the wall time of a step in the parity mode (deterministic algorithms)
@@ -19,7 +21,7 @@ and prints:
 3. a ``torch.profiler`` trace of ``--steps`` parity-mode steps: the
    operators and kernels that take the most device time, the device's
    busy share of the traced wall time, and the share of the port's own
-   kernels (K1, K4 or K5);
+   kernels (K1, K4, K5 or K3);
 4. for NGAT-SS, one layer's four attention projections (forward and
    backward) beside K4's four roles on the same inputs: the device time
    of their kernels (``torch.profiler``) and the time between CUDA events,
@@ -49,7 +51,8 @@ KEY = "X___X___1___A___0"
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("ngnn-ss", "ngat-ss", "ppgn-dd"),
+    ap.add_argument("--model", choices=("ngnn-ss", "ngat-ss", "ppgn-dd",
+                                        "giant"),
                     default="ngnn-ss")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="trace_out")
@@ -83,7 +86,7 @@ def main():
         to_dict = hodata.batch_to_sparse_dict
         kernel = {"NGNN": "spspmm_sum_kernel",
                   "NGAT": "seg_att_kernel"}[conv]
-    else:
+    elif args.model == "ppgn-dd":
         pre = hodata.Mapretransform(partial(hodata.spdsampler,
                                             hop=chip_smoke.DENSE_HOP))
         datas = [pre(g) for g in hodata.synthetic_zinc("train")]
@@ -93,6 +96,32 @@ def main():
         opt = models.make_optimizer(model, chip_smoke.DENSE_LR)
         train_step, _ = models.make_dense_steps()
         to_dict, kernel = hodata.batch_to_dense_dict, "cw_bmm_kernel"
+    else:
+        from pygho_tpu_torch.parallel import (build_giant_graph_plan,
+                                              init_giant_params,
+                                              make_giant_graph_step)
+
+        g = chip_smoke.GIANT
+        inst = chip_smoke.giant_instance()
+        plan = build_giant_graph_plan(inst["acd_pad"], inst["tupleid"],
+                                      inst["nnz_pad"], inst["n"], 1,
+                                      n_edge_rows=inst["Av"].shape[0],
+                                      plan_dim=g["hiddim"])
+        model = init_giant_params(g["num_layer"], g["hiddim"], device=dev)
+        loss_fn, giant_step = make_giant_graph_step(
+            plan, g["num_layer"], lr=g["lr"], device=dev)
+        inputs = [torch.from_numpy(inst[k]).to(dev)
+                  for k in ("Xv", "Av", "y")]
+        # one "batch", the whole graph; the step's own SGD, no optimizer
+        batches, opt = [inputs], None
+
+        def train_step(model, opt, batch):
+            return giant_step(model, *batch)
+
+        def to_dict(batch, annotate, dev):
+            return batch
+
+        kernel = "window_spspmm_kernel"
     model.train()
 
     def steps(n):
@@ -121,7 +150,10 @@ def main():
             for _ in range(n):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                model(dd)
+                if args.model == "giant":
+                    loss_fn(model, *dd)
+                else:
+                    model(dd)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
@@ -164,7 +196,7 @@ def main():
            if e.device_type != torch.autograd.DeviceType.CUDA
            and e.key.startswith(("aten::", "autograd::", "Optimizer",
                                  "SpspmmSum", "ChannelwiseBmm",
-                                 "SegmentAttention"))]
+                                 "SegmentAttention", "WindowSpspmmSum"))]
     print("operators with the most device time (their kernels and their "
           "callees' kernels), per step:")
     for e in sorted(ops, key=lambda e: getattr(
