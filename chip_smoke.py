@@ -9,14 +9,17 @@ Phases, each printing its wall seconds:
 2. build: builds every kernel of the main paths from
    ``pygho_tpu_torch/csrc`` with ``nvcc`` (all sources at once);
 3. kernels: holds each kernel (K1's forward, dX and dA roles; K5's
-   forward, dA and dX roles; K4's forward, dw, dc and dv roles) against
-   its plain PyTorch version on the card, at the shapes the main paths
-   give it (K1 and K4: one 128-graph batch of ``synthetic_zinc("val")``,
-   ``KhopSampler(hop=3)``, D = 128; K5: one 128-graph batch,
-   ``spdsampler(hop=4)``, (128, 32, 32, 128)) and on edge cases, holds the
-   ``SpspmmSum``, ``ChannelwiseBmm`` and ``SegmentAttention`` gradients
-   against autograd through the plain versions, and times kernels, plain
-   versions and, for K5, the library's ``torch.einsum``;
+   forward, dA and dX roles; K4's forward, dw, dc and dv roles; K3's
+   forward, dX and dA roles) against its plain PyTorch version on the
+   card, at the shapes the main paths give it (K1 and K4: one 128-graph
+   batch of ``synthetic_zinc("val")``, ``KhopSampler(hop=3)``, D = 128;
+   K5: one 128-graph batch, ``spdsampler(hop=4)``, (128, 32, 32, 128); K3:
+   the giant graph of phase 10, D = 128) and on edge cases, printing for
+   K3 and K5 whether they agree bit for bit, holds the ``SpspmmSum``,
+   ``ChannelwiseBmm``, ``SegmentAttention`` and ``WindowSpspmmSum``
+   gradients against autograd through the plain versions, and times
+   kernels, plain versions, K3 beside K1 on the same triples and, for K5,
+   the library's ``torch.einsum``;
 4. serving: serves NGNN-SS 6x128 (weights from a seed) through the port's
    ``SpPredictor`` over three requests, checks that every batch went through
    the forward kernel, that the outputs are finite, ordered and repeatable,
@@ -771,20 +774,25 @@ def check_k5(datas, dev, rng, flush):
 
     def compare(role, A, X):
         """Kernel vs plain version: (max abs error, max error over its
-        tolerance K5_RTOL * sum |terms|)."""
+        tolerance K5_RTOL * sum |terms|, bitwise equal)."""
         out = k5.cw_bmm(role, A, X)
         ref = k5.cw_bmm_plain(A, X)
         mag = k5.cw_bmm_plain(A.abs(), X.abs())
         sync()
         if tuple(out.shape) != tuple(A.shape) or not out.is_contiguous():
             raise AssertionError(f"{role.NAME} gave {tuple(out.shape)}")
+        return measure(out, ref, mag)
+
+    def measure(out, ref, mag):
         diff = (out - ref).abs()
         return (float(diff.max()),
-                float((diff / (K5_RTOL * mag).clamp_min(1e-30)).max()))
+                float((diff / (K5_RTOL * mag).clamp_min(1e-30)).max()),
+                bool(torch.equal(out, ref)))
 
-    def held(what, err, ratio):
+    def held(what, err, ratio, same):
         print(f"{what}: max abs err {err:.3e}, {ratio:.3f} of the tolerance "
-              f"{K5_RTOL:g} * sum |terms|")
+              f"{K5_RTOL:g} * sum |terms|; bitwise equal to the plain "
+              f"version: {same}")
         if not ratio <= 1.0:
             raise AssertionError(f"{what} disagrees with the plain version: "
                                  f"{err}")
@@ -793,12 +801,14 @@ def check_k5(datas, dev, rng, flush):
     main = role_args(A, X, g)
     errs = {}
     for role, args in main.items():
-        errs[role], ratio = compare(role, *args)
-        held(f"{role.NAME} main shape {shape}", errs[role], ratio)
+        errs[role], ratio, same = compare(role, *args)
+        held(f"{role.NAME} main shape {shape}", errs[role], ratio, same)
 
     # edge cases, for every role: n = 1; n (37, 33) not a multiple of the
-    # tiles of i (16), j (32) or k (4); d (13, 200) not a multiple of the
-    # 32 channels of a block; a batch whose first graph is all masked
+    # 32 x 32 tile of (i, j) or of the 4 values of k a stage; d (13, 200)
+    # not a multiple of the 16 channels of a block (d = 13 also not of the
+    # 4 of a 16-byte copy: the scalar path); a batch whose first graph is
+    # all masked
     for name, shp in (("n=1", (4, 1, 1, 128)),
                       ("n=37", (3, 37, 37, 128)),
                       ("d=13", (5, 20, 20, 13)),
@@ -828,10 +838,8 @@ def check_k5(datas, dev, rng, flush):
             fb = fb if dim2 == 1 else fb.transpose(1, 2)
             ref = k5.cw_bmm_plain(fa, fb)
             mag = k5.cw_bmm_plain(fa.abs(), fb.abs())
-        diff = (out - ref).abs()
         held(f"mamamm (dim1, dim2) = ({dim1}, {dim2}) through "
-             f"{k5.FWD.NAME}", float(diff.max()),
-             float((diff / (K5_RTOL * mag).clamp_min(1e-30)).max()))
+             f"{k5.FWD.NAME}", *measure(out, ref, mag))
 
     # ChannelwiseBmm's gradients against autograd through the plain version
     W = operand(shape, mask)
@@ -844,10 +852,8 @@ def check_k5(datas, dev, rng, flush):
                 k5.cw_bmm_plain(A.abs().transpose(1, 2), W.abs()))
     for what, got, ref, mag in (("grad_A", Ak.grad, Ap.grad, mags[0]),
                                 ("grad_X", Xk.grad, Xp.grad, mags[1])):
-        diff = (got - ref).abs()
         held(f"ChannelwiseBmm {what} vs autograd through the plain version",
-             float(diff.max()),
-             float((diff / (K5_RTOL * mag).clamp_min(1e-30)).max()))
+             *measure(got, ref, mag))
     del Ak, Xk, Ap, Xp, W, mags
 
     report = []
@@ -1117,11 +1123,11 @@ def check_k3(inst, dev, rng, flush):
     against their plain version on the card; ``WindowSpspmmSum``'s
     gradients, with both operands requiring grad, against autograd through
     the plain version; and the roles' times beside K1's three roles on the
-    same triples.  Returns the roles' lines of the report."""
+    same triples and row pointers.  Returns the roles' lines of the
+    report."""
     import numpy as np
     import torch
 
-    from pygho_tpu_torch.hodata.loader import backward_orders, row_pointer
     from pygho_tpu_torch.kernels import spspmm_sum as k1
     from pygho_tpu_torch.kernels import window_spspmm as k3
 
@@ -1129,15 +1135,14 @@ def check_k3(inst, dev, rng, flush):
     n_t = inst["tup"].shape[1]
     D = GIANT["hiddim"]
     t0 = time.perf_counter()
-    host = k3.build_window_plans(acd, nnz, ne, nnz)
+    host = k3.build_chunk_plans(acd, nnz, ne, nnz)
     plan_s = time.perf_counter() - t0
     plans = [p.to(dev) for p in host]
     print(f"K3 plans of the giant graph ({acd.shape[1]} triples, {nnz} tuple "
           f"rows, {ne} edge rows) built in {plan_s:.3f} s on the host: "
-          + "; ".join(f"{r.NAME}: {p.n_groups} groups, {p.n_windows} "
-                      f"windows of at most {p.max_rows} rows "
-                      f"({int(p.win_rows.sum())} rows staged), {p.n_pieces} "
-                      f"pieces" for r, p in zip(k3.ROLES, host)))
+          + "; ".join(f"{r.NAME}: {p.n_warps} warps over {p.out_rows} rows "
+                      f"({int(np.count_nonzero(np.diff(p.rowptr)))} with "
+                      f"triples)" for r, p in zip(k3.ROLES, host)))
 
     def operand(rows, real):
         x = np.zeros((rows, D), np.float32)
@@ -1150,64 +1155,75 @@ def check_k3(inst, dev, rng, flush):
 
     def compare(role, U, V, plan):
         """Kernel vs plain version: (max abs error, max error over its
-        tolerance); raises where a row with no triples is not 0."""
+        tolerance, bitwise equal); raises where a row with no triples is
+        not 0."""
         out = k3.contract(role, U, V, plan)
         ref = k1.contract_plain(U, V, plan.tuv, plan.out_rows)
         mag = k1.contract_plain(U.abs(), V.abs(), plan.tuv, plan.out_rows)
         sync()
         if out.numel() == 0:
-            return 0.0, 0.0
+            return 0.0, 0.0, True
         empty = torch.bincount(plan.tuv[0].long(),
                                minlength=plan.out_rows) == 0
         if bool((out[empty] != 0).any()):
             raise AssertionError(f"{role.NAME} wrote a non-zero empty row")
         diff = (out - ref).abs()
         return (float(diff.max()),
-                float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max()))
+                float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max()),
+                bool(torch.equal(out, ref)))
 
-    def held(what, err, ratio):
+    def held(what, err, ratio, same):
         print(f"{what}: max abs err {err:.3e}, {ratio:.3f} of the tolerance "
-              f"{KERNEL_RTOL:g} * sum |terms|")
+              f"{KERNEL_RTOL:g} * sum |terms|; bitwise equal to the plain "
+              f"version: {same}")
         if not ratio <= 1.0:
             raise AssertionError(f"{what} disagrees with the plain version: "
                                  f"{err}")
 
     errs = {}
     for role, args in main.items():
-        errs[role], ratio = compare(role, *args)
+        errs[role], ratio, same = compare(role, *args)
         held(f"{role.NAME} giant shape ({args[2].tuv.shape[1]} triples, "
-             f"out {(args[2].out_rows, D)})", errs[role], ratio)
+             f"out {(args[2].out_rows, D)})", errs[role], ratio, same)
 
-    # edge cases, for every role: rows with no triples, a row whose triples
-    # span three and more windows, a window at the end of V, single-row
-    # groups, D = 13 and D = 40 (a partial slice of channels), the largest
-    # window a block can stage (1,816 rows, 232,448 bytes), no triples
-    t_ = np.sort(rng.integers(0, 300, 3000))
-    t_ = t_[(t_ != 3) & (t_ != 150)]
-    v_ = rng.integers(0, 2000, t_.size)
-    v_[t_ == 7] = np.arange(int((t_ == 7).sum())) * 97 % 2000
-    v_[-1] = 1999
-    tuv = np.stack([t_, rng.integers(0, 400, t_.size), v_])
-    dense = np.stack([np.sort(rng.integers(0, 64, 4000)),
-                      rng.integers(0, 400, 4000), rng.integers(0, 1816, 4000)])
+    # edge cases, for every role: short rows (0 to 5 triples) with empty
+    # rows among them and a run of 61 empty rows (two warps and more), a
+    # 120-triple row over five chunks, a row whose first triple starts a
+    # chunk, D = 13 and D = 40 (scalar lanes, a partial last pass), both
+    # operands one float off 16-byte alignment (the scalar path at D =
+    # 128), and no triples
+    lens = rng.integers(0, 6, 300)
+    lens[[3, 150]] = 0
+    lens[200:261] = 0
+    lens[7] = 120
+    starts = np.r_[0, np.cumsum(lens)[:-1]]
+    r = 20 + int(np.argmax((starts[20:] % k3.CHUNK_TRIPLES != 0)
+                           & (lens[20:] > 0)))
+    lens[r - 1] += k3.CHUNK_TRIPLES - starts[r] % k3.CHUNK_TRIPLES
+    t_ = np.repeat(np.arange(300), lens)
+    tuv = np.stack([t_, rng.integers(0, 400, t_.size),
+                    rng.integers(0, 2000, t_.size)])
     cases = {
-        "empty rows, a row over 3+ windows, the end of V, D=128":
-            (128, tuv, 300, 2000, dict(cap=64)),
-        "single-row groups, D=13": (13, tuv, 300, 2000,
-                                    dict(cap=256, group_triples=1)),
-        "D=40 (a partial slice)": (40, tuv, 300, 2000, dict(cap=100)),
-        "one 1,816-row window (232,448 bytes)": (128, dense, 64, 1816,
-                                                  dict(cap=1816)),
-        "no triples": (128, np.zeros((3, 0), np.int64), 10, 10, {}),
+        "short and empty rows, a 120-triple row, a row at a chunk start, "
+        "D=128": (128, tuv, 300, 2000, False),
+        "D=13": (13, tuv, 300, 2000, False),
+        "D=40": (40, tuv, 300, 2000, False),
+        "operands one float off alignment, D=128": (128, tuv, 300, 2000,
+                                                    True),
+        "no triples": (128, np.zeros((3, 0), np.int64), 10, 10, False),
     }
+
+    def case_operand(rows, Dc, offset):
+        x = torch.from_numpy(rng.normal(size=rows * Dc + 1)
+                             .astype(np.float32)).to(dev)
+        return (x[1:] if offset else x[:-1]).view(rows, Dc)
+
     for role in k3.ROLES:
-        for name, (Dc, tuv_c, o_rows, v_rows, kw) in cases.items():
-            plan = k3.build_window_plan(tuv_c, o_rows, 400, v_rows, **kw)
-            Uc = torch.from_numpy(rng.normal(size=(400, Dc))
-                                  .astype(np.float32)).to(dev)
-            Vc = torch.from_numpy(rng.normal(size=(v_rows, Dc))
-                                  .astype(np.float32)).to(dev)
-            held(f"{role.NAME} edge case {name} ({plan.n_windows} windows)",
+        for name, (Dc, tuv_c, o_rows, v_rows, offset) in cases.items():
+            plan = k3.build_chunk_plan(tuv_c, o_rows, 400, v_rows)
+            Uc = case_operand(400, Dc, offset)
+            Vc = case_operand(v_rows, Dc, offset)
+            held(f"{role.NAME} edge case {name} ({plan.n_warps} warps)",
                  *compare(role, Uc, Vc, plan.to(dev)))
 
     # WindowSpspmmSum's gradients against autograd through the plain
@@ -1230,47 +1246,38 @@ def check_k3(inst, dev, rng, flush):
         diff = (got - ref).abs()
         held(f"WindowSpspmmSum {what} vs autograd through the plain version",
              float(diff.max()),
-             float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max()))
+             float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max()),
+             bool(torch.equal(got, ref)))
 
-    # K1's three roles on the same triples: the yardstick
-    a = acd[0]
-    orders = backward_orders(acd, nnz, ne)
-
-    def k1_args(*xs):
-        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                for x in xs]
-
-    on_k1 = {k1.FWD: (X, A, *k1_args(acd.astype(np.int32),
-                                     row_pointer(a, nnz))),
-             k1.DX: (g, A, *k1_args(*orders["dx"])),
-             k1.DA: (X, g, *k1_args(*orders["da"]))}
+    # K1's three roles on the same triples and row pointers: the yardstick
     report, k1_lines = [], []
     for role, r1 in zip(k3.ROLES, k1.ROLES):
         U, V, plan = main[role]
-        k1_out = k1.contract(r1, *on_k1[r1])
-        k1_err = float((k1_out - k1.contract_plain(
-            U, V, plan.tuv, plan.out_rows)).abs().max())
+        k1_args = (U, V, plan.tuv, plan.rowptr)
+        k1_out = k1.contract(r1, *k1_args)
+        k1_same = bool(torch.equal(k1_out, k3.contract(role, U, V, plan)))
         ms = time_ms(lambda: k3.contract(role, U, V, plan), flush)
-        k1_ms = time_ms(lambda: k1.contract(r1, *on_k1[r1]), flush)
+        k1_ms = time_ms(lambda: k1.contract(r1, *k1_args), flush)
         torch.use_deterministic_algorithms(False)
         plain_ms = time_ms(lambda: k1.contract_plain(U, V, plan.tuv,
                                                      plan.out_rows), flush)
         torch.use_deterministic_algorithms(True)
         warm_ms = time_ms(lambda: k3.contract(role, U, V, plan),
                           lambda: torch.cuda._sleep(1_000_000))
-        k1_warm_ms = time_ms(lambda: k1.contract(r1, *on_k1[r1]),
+        k1_warm_ms = time_ms(lambda: k1.contract(r1, *k1_args),
                              lambda: torch.cuda._sleep(1_000_000))
         bound_ms, bound_by, nbytes, flops = k1_bound(plan.tuv,
                                                      plan.out_rows, D)
         print(f"{role.NAME} timing at the giant shape (L2 flushed before "
               f"each launch, median of 30): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms; K1 {r1.NAME} on the same triples "
-              f"{k1_ms:.4f} ms (max abs err {k1_err:.3e}); bound "
+              f"{k1_ms:.4f} ms (bitwise equal to K3: {k1_same}); bound "
               f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, {flops} f32 "
               f"operations at 67 TFLOP/s); inputs left in L2: K3 "
               f"{warm_ms:.4f} ms, K1 {k1_warm_ms:.4f} ms")
         k1_lines.append({"name": r1.NAME, "ms": k1_ms, "warm_ms": k1_warm_ms,
-                         "k3": role.NAME, "k3_ms": ms, "bound_ms": bound_ms})
+                         "k3": role.NAME, "k3_ms": ms, "k3_warm_ms": warm_ms,
+                         "bound_ms": bound_ms, "bitwise": k1_same})
         report.append({"name": role.NAME, "route": "cuda",
                        "source": role.SOURCE, "replaces": role.REPLACES,
                        "launches": None, "max_abs_err": errs[role],
@@ -1622,7 +1629,8 @@ def main():
     for name in names:
         print(f"built {name} in {secs[name]:.2f} s")
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "Function properties" in line:
                 print(f"  {line.strip()}")
     done("build", t0)
 

@@ -7,8 +7,8 @@ Run: python example/giant_graph_gpu.py [--cpu] [--communities 200
 
 It builds a community-structured graph, relabels it in reverse
 Cuthill-McKee order, builds the hop-1 tuples and their contraction's
-window plans on the host, and trains an NGNN stack with plain SGD, each
-layer's contraction on the window kernel K3.  It runs on the CUDA card
+per-role plans (triples, row pointers, warp chunks) on the host, and
+trains an NGNN stack with plain SGD, each layer's contraction on K3.  It runs on the CUDA card
 unless ``--cpu`` is given; with no card and no ``--cpu`` it raises.  The
 graph and the inputs are drawn from one ``numpy.random.default_rng(0)`` in
 the JAX script's order, so both scripts train on the same data (the
@@ -114,7 +114,7 @@ def main():
     print(f"tuples: {inst['tup'].shape[1]}, contraction rows: "
           f"{inst['acd'].shape[1]} ({time.perf_counter() - t0:.1f}s)")
 
-    # 2. the window plans of the contraction's three roles
+    # 2. the plans of the contraction's three roles
     t0 = time.perf_counter()
     plan = build_giant_graph_plan(inst["acd_pad"], inst["tupleid"],
                                   inst["nnz_pad"], inst["n"], args.devices,
@@ -123,9 +123,8 @@ def main():
                                   plan_dim=args.hiddim)
     fwd, dx, da = plan.contraction
     print(f"plan ({args.strategy}, one card): {plan.B} tuple rows; "
-          f"forward {fwd.n_groups} groups, {fwd.n_windows} V windows of at "
-          f"most {fwd.cap} rows; dX {dx.n_windows}, dA {da.n_windows} "
-          f"windows ({time.perf_counter() - t0:.1f}s)")
+          f"{fwd.tuv.shape[1]} triples; warps: forward {fwd.n_warps}, dX "
+          f"{dx.n_warps}, dA {da.n_warps} ({time.perf_counter() - t0:.1f}s)")
 
     # 3. train
     model = init_giant_params(args.num_layer, args.hiddim, device=device)

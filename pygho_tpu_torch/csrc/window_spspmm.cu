@@ -1,70 +1,68 @@
-// K3: K1's sum contraction on a window schedule, in its three roles,
+// K3: K1's sum contraction as a short-row gather, in its three roles,
 //
 //     forward:  out[a, :] += X[c, :] * A[d, :]   over triples (a, c, d)
 //     dX:       dX[c, :]  += g[a, :] * A[d, :]   over triples (c, a, d)
 //     dA:       dA[d, :]  += X[c, :] * g[a, :]   over triples (d, c, a)
 //
 // each as out[t, :] += U[u, :] * V[v, :] over the role's triples (t, u, v),
-// with V read from windows staged in shared memory.
+// sorted by the output row t, with a CSR row pointer over the output rows:
+// the orders K1 reads (hodata/loader.py backward_orders, row_pointer).
 //
 // Replaces the TPU kernel pygho_tpu/kernels/strip_spspmm.py:689
 // _strip_kernel_pv, the persistent-V-window variant of the strip kernel:
-// its host plan (build_strip_plan(..., v_persistent=True), _build_v_sched)
-// copies each V window, for example one community's edge block of a giant
-// graph, into VMEM once and reuses it across all the grid steps that read
-// it.  The TPU grid runs in order on one core, so a window persists across
-// steps; Hopper's blocks run in parallel and share nothing, so here the
-// unit that keeps a window is one block: the host (kernels/window_spspmm.py
-// build_window_plan) cuts the output rows into groups of consecutive rows,
-// gives each group an ordered list of V windows (base, rows), merged
-// greedily by the union of their spans as the TPU planner merges them, and
-// lists, for each window, the group's "pieces": one output row's triples
-// that read that window, with v made window-local.
+// its host plan copies each V window (one community's edge block of a giant
+// graph) into VMEM once and reuses it across the grid steps that read it,
+// because a TPU core gathers rows only through one-hot matrix products over
+// what VMEM holds.  A Hopper warp gathers rows by index, and the 50 MB L2
+// gives the reuse the windows bought: on the giant graph the RCM order
+// interleaves communities, so a window schedule staged about 1.0 M V rows
+// for 190,661 distinct ones, and a first version of this kernel that staged
+// windows in shared memory ran at 18-22% of its bound while K1, with no
+// windows, ran at 73% on the same triples.  So this version stages no
+// window: it is K1's gather, scheduled for short rows.
 //
-// What bounds it on an H100: memory, as K1.  Each triple reads a row of U
-// and a row of V and does 2 operations a channel, far below the ~20
-// operations a byte at which f32 arithmetic would limit it.  The least
-// traffic is every referenced row of U and V read once, the indices once
-// and every output row written once.  The windows read each V row once a
-// group instead of once a triple; the U rows are gathered from device
-// memory (through L2) per triple, as K1 gathers them.
+// What bounds it on an H100: memory.  Each triple reads a row of U and a
+// row of V (2 * D * 4 bytes) and 8 bytes of indices and does 2 * D
+// operations, far below the ~20 operations a byte at which f32 arithmetic
+// would limit it.  The least traffic is every referenced row of U and V
+// read once, the indices once and every output row written once.  Rows of
+// the giant graph hold about 2.4 triples, so a warp a row (K1) waits out
+// its dependent loads (row pointer, indices, gathers) for two or three
+// triples at a time; a warp a chunk waits for them once per 32.  Measured
+// at the giant shape (scripts/k3_gather_ab_gpu.py), this kernel runs at
+// 74-75% of the bound, level with K1 or slightly ahead: every triple
+// still gathers two whole rows through L2, 2.8 times the rows the bound
+// counts, from 205 MB of distinct rows, four times the L2.
 //
 // The design:
-// - one block per (group, slice of 32 channels): grid (groups, ceil(D/32)).
-//   A slice, not the whole width, because a window of one community's
-//   ~950 edge rows at D = 128 in f32 is 486 KB, over the 227 KB of shared
-//   memory a block can have; 32 channels make a 512-row window 64 KB, so
-//   three blocks share an SM and one block's window load runs under the
-//   others' sums.  The planner caps a window's rows (its `cap`), and the
-//   wrapper refuses a plan whose largest window does not fit.  A slice of
-//   32 channels is one f32 per lane, so any D works with one code path
-//   (the last slice masks its lanes past D);
-// - for each window of its group, in order: __syncthreads, the block copies
-//   V[base : base + rows, slice] into dynamic shared memory with coalesced
-//   loads (a warp reads one row's 128-byte slice), __syncthreads, then each
-//   warp takes the window's pieces in turn, one output row a piece, as K1
-//   takes rows: it loads 32 (u, v) pairs with one coalesced load each, hands
-//   them to the lanes by shuffle, gathers U[u, slice] from device memory,
-//   reads V from the window (lane i reads bank i: no conflicts), and keeps
-//   the row's sum in a register;
-// - a row whose triples read several windows has one piece in each, in
-//   window order; its first piece stores its sum and each later piece adds
-//   to what the earlier window stored (the __syncthreads before each window
-//   makes those stores visible to every warp of the block).  Every output
-//   row belongs to one group, so it is written by one block, with no
-//   atomics; a row with no triples has an empty first piece and stores 0,
-//   so the caller allocates the output with torch.empty;
-// - the arithmetic is K1's: each product rounded, then added (__fmul_rn,
-//   __fadd_rn, no fused multiply-add), in the triple order within a piece
-//   and in window order across pieces, so a run gives the same bits every
-//   time.  A row inside one window sums in K1's order and gives K1's bits;
-//   a row split across windows may differ from them in the last bits.
-// - more than 48 KB of dynamic shared memory needs the kernel's attribute
-//   raised (cudaFuncSetAttribute) before the launch; a launch refused for
-//   too much shared memory never runs and synchronising does not report it,
-//   so each entry point returns cudaGetLastError() and the wrapper raises.
-// Double-buffering the next window under the current one (the two VMEM
-// slots of _build_v_sched) and TMA copies are left to a later version.
+// - a warp takes a *chunk* of output rows: the host (kernels/
+//   window_spspmm.py build_chunk_plan) gives warp w the rows whose first
+//   triple lies in one run of 32 triples, at most 32 rows (so a run of
+//   empty rows, the padded tail, spreads over many warps).  Each row is
+//   owned by one warp, so there are no atomics and no second pass; a row
+//   with no triples is stored as zeros by its owner, so the caller
+//   allocates the output with torch.empty;
+// - the warp loads its rows' ends with one coalesced load (a lane a row)
+//   and its triples' (u, v) pairs 32 at a time with one coalesced load
+//   each (a chunk's pairs, and the tail of its last row where that runs
+//   past the chunk), and hands them to the lanes by shuffle;
+// - the feature dim across the lanes, 16 bytes a lane (float4), so all 128
+//   channels of a row are one coalesced 512-byte gather; a scalar path
+//   takes D % 4 != 0 or pointers not 16-byte aligned;
+// - the gathers of kInFlight triples (2 * kInFlight rows) are issued into
+//   registers before their adds, so a warp keeps that many in flight where
+//   a warp a row (K1) has its row's 2.4.  Eight is the measured best: 4 or
+//   16 (fewer warps fit an SM) take 8-18% longer, and a per-warp ring of
+//   cp.async copies in shared memory in place of the registers 1-3%
+//   longer;
+// - the rows are walked in order and each row's sum stays in registers and
+//   is stored when the row ends, with the evict-first hint (__stcs): the
+//   output is written once and never read here, so it should not push
+//   gathered rows out of L2 (about 1% faster than a plain store);
+// - the arithmetic is K1's: the triples in their given order, each product
+//   rounded before it is added (__fmul_rn, __fadd_rn, no fused
+//   multiply-add), so every role equals its plain version, and K1, bit for
+//   bit, and a run gives the same bits every time.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes: one entry
 // point per role, each launching its own instance of the kernel, so a
@@ -76,124 +74,142 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSlice = 32;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kInFlight = 8;   // triples whose gathers a warp issues at once
 constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ float4 mul_add(float4 acc, float4 u, float4 v) {
+  acc.x = __fadd_rn(acc.x, __fmul_rn(u.x, v.x));
+  acc.y = __fadd_rn(acc.y, __fmul_rn(u.y, v.y));
+  acc.z = __fadd_rn(acc.z, __fmul_rn(u.z, v.z));
+  acc.w = __fadd_rn(acc.w, __fmul_rn(u.w, v.w));
+  return acc;
+}
+
+__device__ __forceinline__ float mul_add(float acc, float u, float v) {
+  return __fadd_rn(acc, __fmul_rn(u, v));
+}
+
+__device__ __forceinline__ float4 zero_of(float4) {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+__device__ __forceinline__ float zero_of(float) { return 0.f; }
 
 enum Role { kForward, kDX, kDA };
 
-// The role only names the instance.  U and V are the role's operands (u
-// rows and v rows of D floats); u and vloc its triples' indices in piece
-// order, vloc relative to the piece's window.
-template <Role role>
-__global__ void __launch_bounds__(kThreads)
-window_spspmm_kernel(const float* __restrict__ U, const float* __restrict__ V,
-                     const int* __restrict__ u, const int* __restrict__ vloc,
-                     const int* __restrict__ piece_ptr,
-                     const int* __restrict__ piece_row,
-                     const int* __restrict__ win_base,
-                     const int* __restrict__ win_rows,
-                     const int* __restrict__ win_piece,
-                     const int* __restrict__ grp_win,
-                     float* __restrict__ out, int64_t D) {
-  extern __shared__ float window[];  // [rows][kSlice]
+// T is float4 (width = D / 4 vectors a row) or float (width = D); the role
+// only names the instance.  U and V are the role's operands, u and v its
+// triples' indices in output-row order, rowptr the row pointer of their
+// output rows and warp_row[w] : warp_row[w + 1] the rows of warp w (1 to 32).
+template <typename T, Role role>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+window_spspmm_kernel(const T* __restrict__ U, const T* __restrict__ V,
+                     const int* __restrict__ u, const int* __restrict__ v,
+                     const int* __restrict__ rowptr,
+                     const int* __restrict__ warp_row,
+                     T* __restrict__ out, int64_t n_warps, int64_t width) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t slice0 = (int64_t)blockIdx.y * kSlice;
-  const int64_t col = slice0 + lane;
-  const bool active = col < D;  // inactive lanes still join the shuffles
-  const int g = blockIdx.x;
-  const int w1 = __ldg(grp_win + g + 1);
-  for (int w = __ldg(grp_win + g); w < w1; ++w) {
-    const int64_t base = __ldg(win_base + w);
-    const int n_elem = __ldg(win_rows + w) * kSlice;
-    __syncthreads();  // the previous window is no longer read
-#pragma unroll 4
-    for (int i = threadIdx.x; i < n_elem; i += kThreads) {
-      const int64_t c = slice0 + (i & (kSlice - 1));
-      window[i] = c < D ? __ldg(V + (base + i / kSlice) * D + c) : 0.f;
-    }
-    __syncthreads();  // the window is staged; earlier pieces' stores seen
-    const int p1 = __ldg(win_piece + w + 1);
-    for (int p = __ldg(win_piece + w) + warp; p < p1; p += kWarps) {
-      int row = __ldg(piece_row + p);
-      const bool add = row < 0;
-      if (add) row = ~row;
-      const int start = __ldg(piece_ptr + p);
-      const int end = __ldg(piece_ptr + p + 1);
-      float acc = 0.f;
-      for (int t0 = start; t0 < end; t0 += 32) {
-        const int n = min(32, end - t0);
-        int my_u = 0, my_v = 0;
-        if (lane < n) {
-          my_u = __ldg(u + t0 + lane);
-          my_v = __ldg(vloc + t0 + lane);
-        }
-#pragma unroll 4
-        for (int j = 0; j < n; ++j) {
+  const int64_t w =
+      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (w >= n_warps) return;  // whole warp leaves together
+  const int r0 = __ldg(warp_row + w);
+  const int rows = __ldg(warp_row + w + 1) - r0;
+  // lane l holds the end of the warp's row l
+  const int my_end = lane < rows ? __ldg(rowptr + r0 + 1 + lane) : 0;
+  const int t0 = __ldg(rowptr + r0);
+  const int t1 = __shfl_sync(kFullMask, my_end, rows - 1);
+  for (int64_t base = 0; base < width; base += 32) {
+    const int64_t col = base + lane;
+    const bool active = col < width;  // every lane still joins the shuffles
+    T* o = out + (int64_t)r0 * width + col;
+    int ri = 0;                                  // the row being summed
+    int end = __shfl_sync(kFullMask, my_end, 0);  // and its end
+    T acc = zero_of(T());
+    for (int c0 = t0; c0 < t1; c0 += 32) {
+      const int n = min(32, t1 - c0);
+      int my_u = 0, my_v = 0;
+      if (lane < n) {
+        my_u = __ldg(u + c0 + lane);
+        my_v = __ldg(v + c0 + lane);
+      }
+      for (int j0 = 0; j0 < n; j0 += kInFlight) {
+        T xu[kInFlight], xv[kInFlight];
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q) {
+          const int j = min(j0 + q, n - 1);
           const int uj = __shfl_sync(kFullMask, my_u, j);
           const int vj = __shfl_sync(kFullMask, my_v, j);
-          if (active) {
-            const float x = __ldg(U + (int64_t)uj * D + col);
-            acc = __fadd_rn(acc, __fmul_rn(x, window[vj * kSlice + lane]));
+          xu[q] = zero_of(T());
+          xv[q] = zero_of(T());
+          if (active && j0 + q < n) {
+            xu[q] = __ldg(U + (int64_t)uj * width + col);
+            xv[q] = __ldg(V + (int64_t)vj * width + col);
           }
         }
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q) {
+          if (j0 + q >= n) break;
+          const int t = c0 + j0 + q;
+          while (t >= end) {  // triple t starts a later row: store this one
+            if (active) __stcs(o + (int64_t)ri * width, acc);
+            acc = zero_of(T());
+            ++ri;
+            end = __shfl_sync(kFullMask, my_end, ri);
+          }
+          if (active) acc = mul_add(acc, xu[q], xv[q]);
+        }
       }
-      if (active) {
-        float* o = out + (int64_t)row * D + col;
-        *o = add ? __fadd_rn(*o, acc) : acc;
-      }
+    }
+    // the last row with triples, then any empty rows after it
+    for (; ri < rows; ++ri) {
+      if (active) __stcs(o + (int64_t)ri * width, acc);
+      acc = zero_of(T());
     }
   }
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 template <Role role>
-int launch(const float* U, const float* V, const int* u, const int* vloc,
-           const int* piece_ptr, const int* piece_row, const int* win_base,
-           const int* win_rows, const int* win_piece, const int* grp_win,
-           float* out, int64_t n_groups, int64_t D, int64_t max_rows,
-           void* stream) {
-  if (n_groups <= 0 || D <= 0 || max_rows < 0)
-    return (int)cudaErrorInvalidValue;
-  const int64_t slices = (D + kSlice - 1) / kSlice;
-  if (n_groups > 0x7fffffffLL || slices > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)max_rows * kSlice * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        window_spspmm_kernel<role>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+int launch(const float* U, const float* V, const int* u, const int* v,
+           const int* rowptr, const int* warp_row, float* out,
+           int64_t n_warps, int64_t D, void* stream) {
+  if (n_warps <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)n_groups, (unsigned)slices);
-  window_spspmm_kernel<role><<<grid, kThreads, smem, s>>>(
-      U, V, u, vloc, piece_ptr, piece_row, win_base, win_rows, win_piece,
-      grp_win, out, D);
+  const dim3 grid((unsigned)blocks), block(kWarpsPerBlock * 32);
+  if (D % 4 == 0 && aligned16(U) && aligned16(V) && aligned16(out)) {
+    window_spspmm_kernel<float4, role><<<grid, block, 0, s>>>(
+        reinterpret_cast<const float4*>(U), reinterpret_cast<const float4*>(V),
+        u, v, rowptr, warp_row, reinterpret_cast<float4*>(out), n_warps,
+        D / 4);
+  } else {
+    window_spspmm_kernel<float, role><<<grid, block, 0, s>>>(
+        U, V, u, v, rowptr, warp_row, out, n_warps, D);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Every entry point: U (u_rows, D) and V (v_rows, D) f32, the role's
-// operands; u, vloc: int32[k] in piece order; piece_ptr: int32[pieces + 1];
-// piece_row: int32[pieces] (row, or ~row for a piece that adds);
-// win_base, win_rows: int32[windows]; win_piece: int32[windows + 1];
-// grp_win: int32[n_groups + 1]; out: (out_rows, D) f32; max_rows: the most
-// rows of any window (the dynamic shared memory is max_rows * 32 floats).
-// The plan is built and checked on the host (build_window_plan).  Returns
-// the cudaGetLastError() of the launch (0 on success).
-#define WINDOW_ENTRY(NAME, ROLE)                                              \
-  extern "C" int NAME(const float* U, const float* V, const int* u,          \
-                      const int* vloc, const int* piece_ptr,                 \
-                      const int* piece_row, const int* win_base,             \
-                      const int* win_rows, const int* win_piece,             \
-                      const int* grp_win, float* out, int64_t n_groups,      \
-                      int64_t D, int64_t max_rows, void* stream) {           \
-    return launch<ROLE>(U, V, u, vloc, piece_ptr, piece_row, win_base,       \
-                        win_rows, win_piece, grp_win, out, n_groups, D,      \
-                        max_rows, stream);                                   \
+// operands; u, v: int32[k], the triples' indices into U and V in output-row
+// order; rowptr: int32[out_rows + 1]; warp_row: int32[n_warps + 1], the
+// first row of each warp's chunk (warp_row[n_warps] == out_rows, 1 to 32
+// rows a warp); out: (out_rows, D) f32, written in full.  The plan is built
+// and checked on the host (build_chunk_plan).  Returns the
+// cudaGetLastError() of the launch (0 on success).
+#define WINDOW_ENTRY(NAME, ROLE)                                             \
+  extern "C" int NAME(const float* U, const float* V, const int* u,         \
+                      const int* v, const int* rowptr, const int* warp_row, \
+                      float* out, int64_t n_warps, int64_t D,               \
+                      void* stream) {                                       \
+    return launch<ROLE>(U, V, u, v, rowptr, warp_row, out, n_warps, D,      \
+                        stream);                                            \
   }
 
 // forward: out[a] += X[c] * A[d] over (a, c, d); U = X, V = A

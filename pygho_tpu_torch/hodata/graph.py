@@ -56,8 +56,9 @@ def rcm_reorder(graph: Graph) -> Graph:
     ``pygho_tpu/hodata/graph.py:rcm_reorder``).
 
     RCM keeps a node's neighbours at nearby labels, so the rows a tuple's
-    contraction reads lie in a narrow range, which the window kernel
-    (``kernels/window_spspmm.py``) stages once per range.  As in the JAX
+    contraction reads lie in a narrow range, which the TPU kernel stages
+    once per range and which the card's L2 serves to K3's gathers
+    (``kernels/window_spspmm.py``).  As in the JAX
     package, ``x`` is permuted and the edge list is relabelled in place,
     not re-sorted: its order (and so every edge id) stays the input's.
     """

@@ -1,32 +1,33 @@
-"""K3: K1's contraction ``out[t] += U[u] * V[v]`` on a window schedule,
-its host planner, its three roles, and the ``torch.autograd.Function``
-that ties them together.
+"""K3: K1's contraction ``out[t] += U[u] * V[v]`` as a short-row gather,
+its host plan, its three roles, and the ``torch.autograd.Function`` that
+ties them together.
 
 K3 computes what K1 (``spspmm_sum.py``) computes, over the same triples
-``(t, u, v)`` sorted by the output row ``t``.  Only the schedule differs:
-the host cuts the output rows into *groups* of consecutive rows and gives
-each group an ordered list of V *windows* ``(base, rows)``, so that all
-the group's rows that read one community's edge block read it from one
-window.  A block of
-the kernel (``csrc/window_spspmm.cu``) stages each window of its group in
-shared memory once, and every output row of the group reads V from there;
-U rows are gathered from device memory, as in K1.
+``(t, u, v)`` sorted by the output row ``t``, with the same row pointer.
+Only the schedule differs: K1 gives each output row a warp, and K3 gives
+each warp a *chunk* of rows, the rows whose first triple lies in one run
+of 32 triples (at most ``CHUNK_ROWS`` rows), so that a warp gathers 32
+triples' rows at once where K1's warp gathers a row's two or three.  That
+suits the giant graph, whose rows hold about 2.4 triples
+(``csrc/window_spspmm.cu``).
 
 The three roles, each a contraction over its own triples sorted by its
 output row (the orders of ``hodata/loader.py:backward_orders``):
 
 - forward, ``FWD``: ``out[a] += X[c] * A[d]`` over ``(a, c, d)``;
 - ``DX``: ``dX[c] += g[a] * A[d]`` over ``(c, a, d)``;
-- ``DA``: ``dA[d] += X[c] * g[a]`` over ``(d, c, a)``: its windows are
-  over the tuple rows of ``g``.
+- ``DA``: ``dA[d] += X[c] * g[a]`` over ``(d, c, a)``.
 
 They replace the TPU kernel ``pygho_tpu/kernels/strip_spspmm.py:689``
 ``_strip_kernel_pv``, which ran K1's strip contraction with persistent V
-windows (``build_strip_plan(..., v_persistent=True)``, merge loop
-``:363-394``, schedule ``_build_v_sched`` ``:199``) in the three roles of
-``fused_spspmm_strip`` on pv plans.  The planner here ports *what* those
-decide (which output rows share which V window), not the TPU plan format:
-no strips, slots or DMA schedule.
+windows (``build_strip_plan(..., v_persistent=True)``) in the three roles
+of ``fused_spspmm_strip`` on pv plans.  The windows are not ported: they
+gave a TPU core, which gathers only through one-hot products over VMEM,
+the reuse of an edge block across grid steps, and on an H100 the 50 MB L2
+gives that reuse to a kernel that gathers by index.  A first version that
+staged V windows in shared memory took 3.3x to 4.1x K1's time on the same
+triples (``PERF.md``); the kernel keeps its name and module so that
+reports and traces stay comparable.
 
 The raw wrapper :func:`contract` launches a role's kernel for tensors on a
 CUDA device and runs the plain PyTorch version (K1's
@@ -40,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -50,20 +51,11 @@ from . import _build
 from .spspmm_sum import Role, contract_plain
 
 SOURCE = "pygho_tpu_torch/csrc/window_spspmm.cu"
-# channels of a block's slice: one f32 channel a lane of a warp
-SLICE = 32
-# shared memory a block may hold on Hopper (232,448 bytes of the SM's 256 KB)
-MAX_SMEM_BYTES = 232448
-# default window capacity in rows: a 512-row window of a 32-channel slice
-# is 64 KB of shared memory, so three blocks share an SM and one block's
-# window load runs under the others' sums
-DEFAULT_CAP = 512
-# a group takes the rows whose triples start within one run of this many
-# triples: about 280 groups (1,100 blocks at D = 128) on the giant graph
-DEFAULT_GROUP_TRIPLES = 2048
-# and at most this many rows, so that a run of empty rows (the padded
-# tail) spreads over many blocks
-GROUP_ROWS = 1024
+# a warp's chunk: the rows whose first triple lies in one run of this many
+# triples (one (u, v) pair a lane) ...
+CHUNK_TRIPLES = 32
+# ... and at most this many rows (one row end a lane)
+CHUNK_ROWS = 32
 
 FWD = Role("window_spspmm_fwd_f32",
            "pygho_tpu/kernels/strip_spspmm.py:689 (_strip_kernel_pv, "
@@ -76,58 +68,33 @@ DA = Role("window_spspmm_da_f32",
           "role on the pv dA plan, :1097; _bwd_rule :1130)", SOURCE)
 ROLES = (FWD, DX, DA)
 
-_PLAN_ARRAYS = ("tuv", "u", "vloc", "piece_ptr", "piece_row", "win_base",
-                "win_rows", "win_piece", "grp_win", "grp_rows")
+_PLAN_ARRAYS = ("tuv", "rowptr", "warp_row")
 
 
 @dataclasses.dataclass
-class WindowPlan:
-    """One role's window schedule, as int32 arrays (numpy on the host,
-    torch tensors after :meth:`to`).
+class ChunkPlan:
+    """One role's plan, as int32 arrays (numpy on the host, torch tensors
+    after :meth:`to`):
 
-    - ``tuv`` ``(3, k)``: the real triples ``(t, u, v)`` sorted by ``t``,
-      as given (the plain version's input);
-    - groups ``g``: output rows ``grp_rows[g]:grp_rows[g+1]`` and windows
-      ``grp_win[g]:grp_win[g+1]``;
-    - windows ``w``: V rows ``win_base[w]:win_base[w] + win_rows[w]`` and
-      pieces ``win_piece[w]:win_piece[w+1]``;
-    - pieces ``p``: one output row's triples that read one window,
-      ``piece_ptr[p]:piece_ptr[p+1]`` of ``u`` and ``vloc`` (``v`` made
-      window-local).  ``piece_row[p]`` is the row where the piece is the
-      row's first (the block stores its sum), and ``~row`` (negative)
-      where it adds to the pieces of earlier windows.  Every output row
-      has a first piece; a row with no triples has one empty piece.
-    """
+    - ``tuv`` ``(3, k)``: the triples ``(t, u, v)`` sorted by ``t``, as
+      given (the kernel reads ``u`` and ``v``; the plain version all
+      three);
+    - ``rowptr`` ``(out_rows + 1,)``: the CSR row pointer of ``t``;
+    - ``warp_row`` ``(n_warps + 1,)``: warp ``w`` owns the output rows
+      ``warp_row[w]:warp_row[w + 1]`` (:func:`warp_chunks`)."""
 
     tuv: object
-    u: object
-    vloc: object
-    piece_ptr: object
-    piece_row: object
-    win_base: object
-    win_rows: object
-    win_piece: object
-    grp_win: object
-    grp_rows: object
+    rowptr: object
+    warp_row: object
     out_rows: int
     u_rows: int
     v_rows: int
-    cap: int
-    max_rows: int      # the most rows of any window: a block's shared memory
 
     @property
-    def n_groups(self) -> int:
-        return int(self.grp_win.shape[0]) - 1
+    def n_warps(self) -> int:
+        return int(self.warp_row.shape[0]) - 1
 
-    @property
-    def n_windows(self) -> int:
-        return int(self.win_base.shape[0])
-
-    @property
-    def n_pieces(self) -> int:
-        return int(self.piece_row.shape[0])
-
-    def to(self, device) -> "WindowPlan":
+    def to(self, device) -> "ChunkPlan":
         """The plan with its arrays as int32 tensors on ``device``."""
         arrays = {name: torch.as_tensor(np.asarray(getattr(self, name)),
                                         dtype=torch.int32).to(device)
@@ -135,158 +102,73 @@ class WindowPlan:
         return dataclasses.replace(self, **arrays)
 
 
-def _windows(vs: np.ndarray, cap: int) -> List[Tuple[int, int]]:
-    """``(base, rows)`` windows of at most ``cap`` rows covering the
-    sorted distinct V rows ``vs`` of one group, in ascending order.
+def warp_chunks(rowptr: np.ndarray) -> np.ndarray:
+    """The first row of each warp's chunk, and the row count at the end.
 
-    Runs of rows with gaps of at most ``cap // 8`` are clusters; adjacent
-    clusters merge greedily while the union of their spans fits ``cap``
-    (the JAX merge loop's union-span rule, ``strip_spspmm.py:363-394``),
-    so a stray row far from a community's block gets a small window of its
-    own instead of cutting the block; a cluster wider than ``cap`` is cut
-    greedily."""
-    cut = np.flatnonzero(np.diff(vs) > max(cap // 8, 1)) + 1
-    los = vs[np.r_[0, cut]]
-    his = vs[np.r_[cut - 1, vs.size - 1]]
-    out: List[Tuple[int, int]] = []
-    lo = hi = None
-    for clo, chi in zip(los.tolist(), his.tolist()):
-        if lo is not None and chi - lo < cap:
-            hi = chi
-            continue
-        if lo is not None:
-            out.append((lo, hi - lo + 1))
-        lo, hi = clo, chi
-        while hi - lo >= cap:       # a cluster wider than one window
-            last = int(vs[np.searchsorted(vs, lo + cap) - 1])
-            out.append((lo, last - lo + 1))
-            lo = int(vs[np.searchsorted(vs, lo + cap)])
-    if lo is not None:
-        out.append((lo, hi - lo + 1))
-    return out
+    Row ``r`` belongs to the chunk of triples ``rowptr[r] // 32``: the
+    chunk that holds its first triple or, for a row with no triples, the
+    position where it would start.  Each run of rows in one chunk is one
+    warp's, cut into runs of at most ``CHUNK_ROWS`` rows.  A row longer
+    than a chunk stays with the warp where it starts."""
+    rowptr = np.asarray(rowptr, dtype=np.int64)
+    rows = rowptr.shape[0] - 1
+    if rows <= 0:
+        return np.zeros(1, np.int64)
+    chunk = rowptr[:-1] // CHUNK_TRIPLES
+    starts = np.flatnonzero(np.r_[True, chunk[1:] != chunk[:-1]])
+    lens = np.diff(np.r_[starts, rows])
+    pieces = (lens + CHUNK_ROWS - 1) // CHUNK_ROWS
+    first = np.cumsum(pieces) - pieces
+    step = np.arange(int(pieces.sum())) - np.repeat(first, pieces)
+    return np.r_[np.repeat(starts, pieces) + CHUNK_ROWS * step, rows]
 
 
-def _group_ends(rowptr: np.ndarray, budget: int,
-                max_rows: int) -> np.ndarray:
-    """The row where each group ends: consecutive rows whose first triple
-    falls in one run of ``budget`` triples form a group, cut again every
-    ``max_rows`` rows."""
-    n = rowptr.shape[0] - 1
-    rows = np.arange(n, dtype=np.int64)
-    key = (rowptr[:-1] // budget) * (n + 1) + rows // max_rows
-    return np.r_[np.flatnonzero(key[1:] != key[:-1]) + 1, n] if n \
-        else np.zeros(0, np.int64)
-
-
-def build_window_plan(tuv: np.ndarray, out_rows: int, u_rows: int,
-                      v_rows: int, cap: int = DEFAULT_CAP,
-                      group_triples: int = DEFAULT_GROUP_TRIPLES
-                      ) -> WindowPlan:
-    """One role's window plan from its real triples ``tuv`` ``(3, k)``
-    sorted by the output row ``t`` (the forward ``acd``, or an order of
+def build_chunk_plan(tuv: np.ndarray, out_rows: int, u_rows: int,
+                     v_rows: int) -> ChunkPlan:
+    """One role's plan from its real triples ``tuv`` ``(3, k)`` sorted by
+    the output row ``t`` (the forward ``acd``, or an order of
     ``backward_orders``), over ``out_rows`` output rows and operands of
-    ``u_rows`` and ``v_rows`` rows; windows hold at most ``cap`` V rows.
+    ``u_rows`` and ``v_rows`` rows: the triples as given, their row
+    pointer (``hodata.loader.row_pointer``) and the warps' chunks."""
+    # imported here: hodata's loader imports the model layers, which
+    # import this package
+    from ..hodata.loader import row_pointer
 
-    Groups are runs of about ``group_triples`` triples and at most
-    ``GROUP_ROWS`` rows (:func:`_group_ends`); each group's windows cover
-    the V rows its triples read (:func:`_windows`).  A row whose triples
-    read several windows is split into one piece per window, in window
-    order, and the block that owns the group sums the pieces: every output
-    row is written by one block, with no atomics.  Within a piece the
-    triples keep their given order."""
     tuv = np.asarray(tuv, dtype=np.int64)
     if tuv.ndim != 2 or tuv.shape[0] != 3:
         raise ValueError(f"triples must be (3, k), got {tuv.shape}")
-    t, u, v = tuv
-    k = t.size
-    if min(cap, group_triples) < 1:
-        raise ValueError("cap and group_triples must be at least 1")
-    if k:
+    if tuv.shape[1] >= 2 ** 31:
+        raise ValueError("more triples than int32 indices can address")
+    t = tuv[0]
+    if t.size:
         if np.any(np.diff(t) < 0):
             raise ValueError("triples are not sorted by the output row")
-        for name, idx, rows in (("t", t, out_rows), ("u", u, u_rows),
-                                ("v", v, v_rows)):
+        for name, idx, rows in (("t", t, out_rows), ("u", tuv[1], u_rows),
+                                ("v", tuv[2], v_rows)):
             if idx.min() < 0 or idx.max() >= rows:
                 raise ValueError(f"{name} out of range [0, {rows})")
-    rowptr = np.zeros(out_rows + 1, np.int64)
-    np.cumsum(np.bincount(t, minlength=out_rows), out=rowptr[1:])
-    has = rowptr[1:] > rowptr[:-1]
-    ends = _group_ends(rowptr, group_triples, GROUP_ROWS)
-    grp_rows = np.r_[0, ends]
-    grp_of_row = np.repeat(np.arange(ends.size), np.diff(grp_rows))
-
-    # each group's windows; a group with no triples gets one empty window
-    win_base: List[int] = []
-    win_rows: List[int] = []
-    grp_win = np.zeros(ends.size + 1, np.int64)
-    win_of = np.zeros(k, np.int64)          # global window of each triple
-    for g in range(ends.size):
-        s, e = rowptr[grp_rows[g]], rowptr[grp_rows[g + 1]]
-        wins = _windows(np.unique(v[s:e]), cap) if e > s else [(0, 0)]
-        if e > s:
-            bases = np.asarray([b for b, _ in wins], np.int64)
-            win_of[s:e] = len(win_base) + np.searchsorted(
-                bases, v[s:e], side="right") - 1
-        for b, r in wins:
-            win_base.append(b)
-            win_rows.append(r)
-        grp_win[g + 1] = len(win_base)
-    win_base_a = np.asarray(win_base, np.int64)
-    win_rows_a = np.asarray(win_rows, np.int64)
-
-    # pieces: triples ordered by (window, row), stable, so each piece is a
-    # run of one row's triples in their given order; rows with no triples
-    # get an empty piece in their group's first window
-    order = np.lexsort((t, win_of))
-    ts, ws = t[order], win_of[order]
-    brk = np.flatnonzero((ts[1:] != ts[:-1]) | (ws[1:] != ws[:-1])) + 1
-    p_start = np.r_[0, brk] if k else np.zeros(0, np.int64)
-    p_row, p_win = ts[p_start], ws[p_start]
-    p_len = np.diff(np.r_[p_start, k])
-    empty = np.flatnonzero(~has)
-    rows_all = np.r_[p_row, empty]
-    wins_all = np.r_[p_win, grp_win[grp_of_row[empty]]]
-    len_all = np.r_[p_len, np.zeros(empty.size, np.int64)]
-    po = np.lexsort((rows_all, wins_all))
-    rows_all, wins_all, len_all = rows_all[po], wins_all[po], len_all[po]
-    # a row's first piece is the one of its lowest window
-    by_row = np.lexsort((wins_all, rows_all))
-    first = np.ones(rows_all.size, bool)
-    first[by_row[1:]] = rows_all[by_row[1:]] != rows_all[by_row[:-1]]
-    piece_row = np.where(first, rows_all, ~rows_all)
-    piece_ptr = np.r_[0, np.cumsum(len_all)]
-    win_piece = np.searchsorted(wins_all, np.arange(win_base_a.size + 1))
-    i32 = np.int32
-    return WindowPlan(
-        tuv=np.ascontiguousarray(tuv, dtype=i32),
-        u=u[order].astype(i32), vloc=(v - win_base_a[win_of])[order]
-        .astype(i32), piece_ptr=piece_ptr.astype(i32),
-        piece_row=piece_row.astype(i32), win_base=win_base_a.astype(i32),
-        win_rows=win_rows_a.astype(i32), win_piece=win_piece.astype(i32),
-        grp_win=grp_win.astype(i32), grp_rows=grp_rows.astype(i32),
-        out_rows=int(out_rows), u_rows=int(u_rows), v_rows=int(v_rows),
-        cap=int(cap), max_rows=int(win_rows_a.max(initial=0)))
+    rowptr = row_pointer(t, out_rows)
+    return ChunkPlan(tuv=np.ascontiguousarray(tuv, dtype=np.int32),
+                     rowptr=rowptr,
+                     warp_row=warp_chunks(rowptr).astype(np.int32),
+                     out_rows=int(out_rows), u_rows=int(u_rows),
+                     v_rows=int(v_rows))
 
 
-def build_window_plans(acd: np.ndarray, x_rows: int, a_rows: int,
-                       out_rows: int, cap: int = DEFAULT_CAP,
-                       group_triples: int = DEFAULT_GROUP_TRIPLES
-                       ) -> Tuple[WindowPlan, WindowPlan, WindowPlan]:
-    """The (forward, dX, dA) window plans of real ``acd`` triples sorted
-    by ``a``: the forward over ``(a, c, d)``, dX over ``(c, a, d)`` and dA
-    over ``(d, c, a)`` in the stable orders of ``backward_orders`` (the
-    counterpart of ``build_spspmm_strip_plans`` on a pv geometry)."""
+def build_chunk_plans(acd: np.ndarray, x_rows: int, a_rows: int,
+                      out_rows: int
+                      ) -> Tuple[ChunkPlan, ChunkPlan, ChunkPlan]:
+    """The (forward, dX, dA) plans of real ``acd`` triples sorted by
+    ``a``: the forward over ``(a, c, d)``, dX over ``(c, a, d)`` and dA
+    over ``(d, c, a)`` in the stable orders of ``backward_orders``, the
+    orders K1's training batches carry."""
+    from ..hodata.loader import backward_orders
+
     acd = np.asarray(acd, dtype=np.int64)
-    a, c, d = acd
-    kw = dict(cap=cap, group_triples=group_triples)
-    fwd = build_window_plan(acd, out_rows, x_rows, a_rows, **kw)
-    o = np.argsort(c, kind="stable")
-    dx = build_window_plan(np.stack([c[o], a[o], d[o]]), x_rows, out_rows,
-                           a_rows, **kw)
-    o = np.argsort(d, kind="stable")
-    da = build_window_plan(np.stack([d[o], c[o], a[o]]), a_rows, x_rows,
-                           out_rows, **kw)
-    return fwd, dx, da
+    orders = backward_orders(acd, x_rows, a_rows)
+    return (build_chunk_plan(acd, out_rows, x_rows, a_rows),
+            build_chunk_plan(orders["dx"][0], x_rows, out_rows, a_rows),
+            build_chunk_plan(orders["da"][0], a_rows, x_rows, out_rows))
 
 
 def _lib() -> ctypes.CDLL:
@@ -294,13 +176,13 @@ def _lib() -> ctypes.CDLL:
     for role in ROLES:
         fn = getattr(lib, role.NAME)
         if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 3 \
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 2 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return lib
 
 
-def _check(U, V, plan: WindowPlan):
+def _check(U, V, plan: ChunkPlan):
     for name, t in (("U", U), ("V", V)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -323,9 +205,7 @@ def _check(U, V, plan: WindowPlan):
         if not torch.is_tensor(a) or a.device != U.device \
                 or a.dtype != torch.int32 or not a.is_contiguous():
             raise ValueError(f"plan array {name} must be a contiguous int32 "
-                             f"tensor on {U.device} (WindowPlan.to)")
-    if plan.tuv.shape[1] >= 2 ** 31:
-        raise ValueError("more triples than int32 indices can address")
+                             f"tensor on {U.device} (ChunkPlan.to)")
     if torch.is_grad_enabled() and (U.requires_grad or V.requires_grad):
         raise RuntimeError(
             "the raw K3 wrapper builds no autograd graph, and its input "
@@ -334,10 +214,10 @@ def _check(U, V, plan: WindowPlan):
 
 
 def contract(role: Role, U: torch.Tensor, V: torch.Tensor,
-             plan: WindowPlan) -> torch.Tensor:
+             plan: ChunkPlan) -> torch.Tensor:
     """One role of K3, ``out[t] = sum over (t, u, v) of U[u] * V[v]``, as
-    an ``(plan.out_rows, D)`` float32 tensor, on ``plan``'s schedule (on
-    the device of ``U``; rows with no triples come out 0)."""
+    an ``(plan.out_rows, D)`` float32 tensor, on ``plan``'s chunks (on the
+    device of ``U``; rows with no triples come out 0)."""
     _check(U, V, plan)
     D = U.shape[1]
     if U.device.type == "cpu":
@@ -348,19 +228,12 @@ def contract(role: Role, U: torch.Tensor, V: torch.Tensor,
                       device=U.device)
     if plan.out_rows == 0:
         return out
-    smem = plan.max_rows * SLICE * 4
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"a window of {plan.max_rows} rows needs {smem} "
-                         f"bytes of shared memory, over {MAX_SMEM_BYTES}: "
-                         f"build the plan with a smaller cap")
     with torch.cuda.device(U.device):
         fn = getattr(_lib(), role.NAME)
-        rc = fn(U.data_ptr(), V.data_ptr(), plan.u.data_ptr(),
-                plan.vloc.data_ptr(), plan.piece_ptr.data_ptr(),
-                plan.piece_row.data_ptr(), plan.win_base.data_ptr(),
-                plan.win_rows.data_ptr(), plan.win_piece.data_ptr(),
-                plan.grp_win.data_ptr(), out.data_ptr(), plan.n_groups, D,
-                plan.max_rows, torch.cuda.current_stream().cuda_stream)
+        rc = fn(U.data_ptr(), V.data_ptr(), plan.tuv[1].data_ptr(),
+                plan.tuv[2].data_ptr(), plan.rowptr.data_ptr(),
+                plan.warp_row.data_ptr(), out.data_ptr(), plan.n_warps, D,
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{role.NAME} launch failed: CUDA error {rc}")
     role.launches += 1
@@ -368,7 +241,7 @@ def contract(role: Role, U: torch.Tensor, V: torch.Tensor,
 
 
 # the (forward, dX, dA) plans of one contraction, on the operands' device
-WindowPlans = Tuple[WindowPlan, WindowPlan, WindowPlan]
+ChunkPlans = Tuple[ChunkPlan, ChunkPlan, ChunkPlan]
 
 
 class WindowSpspmmSum(torch.autograd.Function):
@@ -382,7 +255,7 @@ class WindowSpspmmSum(torch.autograd.Function):
     gradient is taken in f32."""
 
     @staticmethod
-    def forward(ctx, X, A, plans: WindowPlans):
+    def forward(ctx, X, A, plans: ChunkPlans):
         fwd, dx, da = plans
         if dx.out_rows != X.shape[0] or da.out_rows != A.shape[0] \
                 or dx.u_rows != fwd.out_rows or da.v_rows != fwd.out_rows:

@@ -1,7 +1,7 @@
 """Parallel training paths (port of ``pygho_tpu/parallel``).
 
 Ported so far: the giant-graph path of ``giant.py`` on one card (P = 1),
-its contraction on the window kernel K3.  The data-, tensor- and
+its contraction on K3, the short-row gather.  The data-, tensor- and
 pipeline-parallel paths, the mesh and the multi-card tuple-parallel
 strategies are not ported yet (``ROADMAP.md``, S7).
 """

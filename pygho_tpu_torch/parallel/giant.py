@@ -5,8 +5,8 @@ shards its tuple rows over a mesh axis and trains an NGNN-style stack with
 the contraction split into local and boundary triples.  The port runs it
 on one card (P = 1): one shard, no boundary, so every strategy of the JAX
 package comes to the same plan, and the contraction of every layer runs on
-the window kernel K3 (``kernels/window_spspmm.py``) in its forward and dX
-roles.  The strategies that exchange boundary rows between cards (P > 1)
+K3 (``kernels/window_spspmm.py``), the short-row gather, in its forward
+and dX roles.  The strategies that exchange boundary rows between cards (P > 1)
 are not ported (``ROADMAP.md``, S7).
 
 The stack, with the JAX package's math:
@@ -18,8 +18,9 @@ The stack, with the JAX package's math:
 - a ``(d, 1)`` readout, an MSE loss over the real nodes, and plain SGD,
   ``p - lr * grad``.
 
-Everything data-dependent (the window plans, the root ids) is built on
-the host by :func:`build_giant_graph_plan`.
+Everything data-dependent (the contraction's per-role triples, row
+pointers and warp chunks, the root ids) is built on the host by
+:func:`build_giant_graph_plan`.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ from torch import nn
 from ..backend.indexing import PAD_INDEX
 from ..backend.segment import segment_reduce
 from ..device import DeviceLike, resolve_device
-from ..kernels.window_spspmm import (WindowPlans, WindowSpspmmSum,
-                                     build_window_plans)
+from ..kernels.window_spspmm import (ChunkPlans, WindowSpspmmSum,
+                                     build_chunk_plans)
 
 # the JAX package's strategy names; at P = 1 each is one shard with no
 # boundary, so all build the same plan
@@ -47,13 +48,14 @@ STRATEGIES = ("overlapped", "ring", "reduce_scatter", "overlapped_fused")
 class GiantGraphPlan:
     """The plan of one giant graph's NGNN stack.
 
-    ``contraction``: the (forward, dX, dA) window plans of the per-layer
-    contraction (the same triples every layer); ``root_ids``: int64
+    ``contraction``: the (forward, dX, dA) chunk plans of the per-layer
+    contraction (the same triples every layer: ``acd`` and the orders of
+    ``backward_orders``, each with its row pointer and warp chunks); ``root_ids``: int64
     ``(P * B,)``, the root node of each tuple row, ``n_nodes`` for a
     padded row; ``n_nodes``: the node count (output rows of the pooling);
     ``P``: shards (1); ``B``: tuple rows a shard."""
 
-    contraction: WindowPlans
+    contraction: ChunkPlans
     root_ids: object
     n_nodes: int
     P: int
@@ -82,8 +84,8 @@ def build_giant_graph_plan(acd: np.ndarray, tupleid: np.ndarray,
     indices ``(2, nnz_pad)``; ``n_edge_rows``: the rows of the edge values
     ``Av`` (default: the largest ``d`` + 1).  ``strategy`` takes the JAX
     package's names, which all give the one-card plan; ``P > 1`` raises.
-    ``plan_dim`` is accepted for the JAX signature: the window plans do not
-    depend on the width, since a block of the kernel takes 32 channels."""
+    ``plan_dim`` is accepted for the JAX signature: the chunk plans do not
+    depend on the width."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; expected one of "
                          f"{STRATEGIES}")
@@ -99,7 +101,7 @@ def build_giant_graph_plan(acd: np.ndarray, tupleid: np.ndarray,
     acd = acd[:, acd[0] < PAD_INDEX].astype(np.int64)
     if n_edge_rows is None:
         n_edge_rows = int(acd[2].max()) + 1 if acd.size else 1
-    contraction = build_window_plans(acd, nnz_pad, n_edge_rows, nnz_pad)
+    contraction = build_chunk_plans(acd, nnz_pad, n_edge_rows, nnz_pad)
     tid0 = np.asarray(tupleid)[0]
     if tid0.shape[0] != nnz_pad:
         raise ValueError(f"tupleid has {tid0.shape[0]} columns, nnz_pad "

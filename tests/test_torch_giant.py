@@ -1,6 +1,6 @@
 """The giant-graph slice of the port against the JAX package, on the CPU:
-the window planner of K3 (``kernels/window_spspmm.py``) and a simulation
-of its schedule, K3's contraction and gradients against
+K3's chunk plans (``kernels/window_spspmm.py``) and a simulation of the
+kernel's schedule, K3's contraction and gradients against
 ``fused_spspmm_strip`` on persistent-V-window (pv) plans, which runs the
 TPU kernel ``_strip_kernel_pv`` in interpret mode, ``rcm_reorder`` and the
 hop-1 triples, and the giant-graph training step against JAX's
@@ -29,6 +29,7 @@ from pygho_tpu.parallel import make_mesh
 
 from pygho_tpu_torch.backend import indexing
 from pygho_tpu_torch.hodata.graph import Graph, rcm_reorder
+from pygho_tpu_torch.hodata.loader import backward_orders, row_pointer
 from pygho_tpu_torch.kernels import window_spspmm as k3
 from pygho_tpu_torch.kernels.spspmm_sum import contract_plain
 from pygho_tpu_torch.parallel import (build_giant_graph_plan,
@@ -76,165 +77,160 @@ def community_triples(rng, n_com=8, tup_per=512, edg_per=256, K=8192):
 
 
 def run_schedule(p, U, V):
-    """The kernel's schedule in numpy: per group, per window in order, each
-    piece's sum over V read from the window; a row's first piece stores,
-    later pieces add.  Checks on the way that windows lie inside V, that
-    pieces stay in their group's rows and that each row is stored first
-    and added to after."""
+    """The kernel's schedule in numpy f32: each warp walks its rows in
+    order over its triples, each product rounded, then added to the row's
+    sum, which is stored when the row ends (a row with no triples stores
+    0).  Checks on the way that each row is stored once, by its owner."""
     out = np.full((p.out_rows, U.shape[1]), np.nan, np.float32)
-    for g in range(p.n_groups):
-        r0, r1 = p.grp_rows[g], p.grp_rows[g + 1]
-        for w in range(p.grp_win[g], p.grp_win[g + 1]):
-            base, rows = int(p.win_base[w]), int(p.win_rows[w])
-            assert 0 <= base and base + rows <= V.shape[0]
-            assert rows <= p.cap
-            win = V[base:base + rows]
-            for q in range(p.win_piece[w], p.win_piece[w + 1]):
-                row = int(p.piece_row[q])
-                add = row < 0
-                row = ~row if add else row
-                assert r0 <= row < r1
-                s, e = p.piece_ptr[q], p.piece_ptr[q + 1]
-                acc = np.zeros(U.shape[1], np.float32)
-                for j in range(s, e):
-                    acc = acc + U[p.u[j]] * win[p.vloc[j]]
-                if add:
-                    assert not np.isnan(out[row]).any(), row
-                    out[row] = out[row] + acc
-                else:
-                    assert np.isnan(out[row]).all(), row
-                    out[row] = acc
+    u, v = p.tuv[1], p.tuv[2]
+    for w in range(p.n_warps):
+        r0, r1 = p.warp_row[w], p.warp_row[w + 1]
+        assert 1 <= r1 - r0 <= k3.CHUNK_ROWS
+        ri, acc = r0, np.zeros(U.shape[1], np.float32)
+        for t in range(p.rowptr[r0], p.rowptr[r1]):
+            while t >= p.rowptr[ri + 1]:
+                assert np.isnan(out[ri]).all(), ri
+                out[ri], acc = acc, np.zeros(U.shape[1], np.float32)
+                ri += 1
+            acc = acc + U[u[t]] * V[v[t]]
+        for r in range(ri, r1):
+            assert np.isnan(out[r]).all(), r
+            out[r], acc = acc, np.zeros(U.shape[1], np.float32)
     assert not np.isnan(out).any(), "a row was never written"
     return out
 
 
-def pieces_of(p):
-    """Every triple as the plan lists it: (row, u, v) in piece order, and
-    the piece of each triple."""
-    rows = np.where(p.piece_row < 0, ~p.piece_row, p.piece_row)
-    per = np.diff(p.piece_ptr)
-    win_of_piece = np.repeat(np.arange(p.n_windows), np.diff(p.win_piece))
-    piece = np.repeat(np.arange(p.n_pieces), per)
-    v = p.vloc + p.win_base[win_of_piece[piece]]
-    return np.stack([rows[piece], p.u, v]), piece
+def edge_triples(rng, out_rows=300, u_rows=400, v_rows=2000):
+    """Short rows (0 to 5 triples) with empty rows among them, a run of 61
+    empty rows, a 120-triple row over five chunks, a row whose first triple
+    starts a chunk, and a tail of empty rows: ``(tuv, out_rows, u_rows,
+    v_rows, the row at a chunk start)``."""
+    lens = rng.integers(0, 6, out_rows)
+    lens[[3, 150]] = 0
+    lens[200:261] = 0
+    lens[7] = 120
+    lens[-20:] = 0
+    starts = np.r_[0, np.cumsum(lens)[:-1]]
+    r = 20 + int(np.argmax((starts[20:] % k3.CHUNK_TRIPLES != 0)
+                           & (lens[20:] > 0)))
+    lens[r - 1] += k3.CHUNK_TRIPLES - starts[r] % k3.CHUNK_TRIPLES
+    t = np.repeat(np.arange(out_rows), lens)
+    tuv = np.stack([t, rng.integers(0, u_rows, t.size),
+                    rng.integers(0, v_rows, t.size)])
+    return tuv, out_rows, u_rows, v_rows, r
 
 
-def check_invariants(p, tuv):
-    t, u, v = tuv
-    got, piece = pieces_of(p)
-    # every triple lands in exactly one piece
-    assert got.shape == tuv.shape
-    key = lambda a: a[:, np.lexsort(a[::-1])]
-    np.testing.assert_array_equal(key(got), key(tuv))
-    # each piece reads inside its window
-    win_of_piece = np.repeat(np.arange(p.n_windows), np.diff(p.win_piece))
-    assert np.all(p.vloc >= 0)
-    assert np.all(p.vloc < p.win_rows[win_of_piece[piece]])
-    # windows lie inside V, each in one group, in ascending order there
-    assert np.all(p.win_base >= 0)
-    assert np.all(p.win_base + p.win_rows <= p.v_rows)
-    assert np.all(p.win_rows <= p.cap)
-    for g in range(p.n_groups):
-        b = p.win_base[p.grp_win[g]:p.grp_win[g + 1]]
-        r = p.win_rows[p.grp_win[g]:p.grp_win[g + 1]]
-        assert np.all(b[1:] >= b[:-1] + r[:-1])
-    # groups cover the output rows in order; every row has one first
-    # piece, and a row inside one piece keeps its triples' given order
-    assert p.grp_rows[0] == 0 and p.grp_rows[-1] == p.out_rows
-    assert np.all(np.diff(p.grp_rows) > 0)
-    firsts = p.piece_row[p.piece_row >= 0]
-    np.testing.assert_array_equal(np.sort(firsts), np.arange(p.out_rows))
-    rows = np.where(p.piece_row < 0, ~p.piece_row, p.piece_row)
-    n_pieces = np.bincount(rows, minlength=p.out_rows)
-    ptr = np.r_[0, np.cumsum(np.bincount(t, minlength=p.out_rows))]
-    for q in np.flatnonzero(n_pieces[rows] == 1):
-        r = rows[q]
-        s, e = p.piece_ptr[q], p.piece_ptr[q + 1]
-        np.testing.assert_array_equal(got[1:, s:e],
-                                      tuv[1:, ptr[r]:ptr[r + 1]])
+def check_chunks(p):
+    """Each output row owned by exactly one warp: the warps' rows tile
+    ``[0, out_rows)`` in order, 1 to CHUNK_ROWS rows each; the rows of a
+    warp start in one chunk of CHUNK_TRIPLES triples, and a warp starts a
+    new chunk or continues a run of CHUNK_ROWS rows of the one before."""
+    wr, rp = p.warp_row.astype(np.int64), p.rowptr.astype(np.int64)
+    assert wr[0] == 0 and wr[-1] == p.out_rows
+    size = np.diff(wr)
+    assert size.min(initial=1) >= 1 and size.max(initial=1) <= k3.CHUNK_ROWS
+    chunk = rp[:-1] // k3.CHUNK_TRIPLES
+    owner = np.repeat(np.arange(p.n_warps), size)
+    for w in range(p.n_warps):
+        assert np.all(chunk[wr[w]:wr[w + 1]] == chunk[wr[w]])
+        if w:
+            assert chunk[wr[w]] > chunk[wr[w - 1]] \
+                or size[w - 1] == k3.CHUNK_ROWS
+    return owner
 
 
-def test_planner_invariants_and_merging():
-    """The planner on the pv test's community workload: every triple in
-    one piece, windows inside V, and the windows merge: each community's
-    256-row edge block is staged once a group, so the rows staged are far
-    fewer than the triples' V reads, and far fewer windows are staged than
-    there are 64-row output blocks (each of which a per-block window, as
-    the JAX classic plan has, would stage on its own)."""
+def test_chunk_plan_invariants():
+    """The chunk plan on the edge workload: every row, empty ones too, is
+    owned by one warp; the run of 61 empty rows spans two warps and more;
+    the 120-triple row's warp runs past its chunk, and the warp after it
+    starts where the row ends; the row at a chunk start opens a warp."""
     rng = np.random.default_rng(0)
-    tuv, n_out, n_v = community_triples(rng)
-    plan = k3.build_window_plan(tuv, n_out, n_out, n_v)
-    check_invariants(plan, tuv)
-    assert plan.n_windows < (n_out // 64) / 4, plan.n_windows
-    assert int(plan.win_rows.sum()) < tuv.shape[1] / 2
-    # no row of this workload spans two windows
-    assert plan.n_pieces == n_out
+    tuv, out_rows, u_rows, v_rows, r = edge_triples(rng)
+    p = k3.build_chunk_plan(tuv, out_rows, u_rows, v_rows)
+    owner = check_chunks(p)
+    np.testing.assert_array_equal(p.tuv, tuv)
+    np.testing.assert_array_equal(p.rowptr, row_pointer(tuv[0], out_rows))
+    assert len(set(owner[200:261])) >= 2
+    w7 = owner[7]
+    assert p.rowptr[p.warp_row[w7 + 1]] - p.rowptr[p.warp_row[w7]] >= 120
+    assert p.rowptr[p.warp_row[w7 + 1]] == p.rowptr[8]
+    assert r in set(p.warp_row) and p.rowptr[r] % k3.CHUNK_TRIPLES == 0
+    # no triples: the rows still split into warps that store zeros
+    empty = k3.build_chunk_plan(np.zeros((3, 0), np.int64), 70, 4, 5)
+    check_chunks(empty)
+    assert empty.n_warps == 3
+    assert k3.build_chunk_plan(np.zeros((3, 0)), 0, 1, 1).n_warps == 0
 
 
-def test_planner_schedule_simulation_matches_plain():
-    """Running the plan's schedule as the kernel does (numpy) gives the
-    plain contraction, on edge cases: empty rows, a row whose triples span
-    three and more windows, a window at the end of V, single-row groups, a
-    D not a multiple of 4 or of 32, and no triples at all.  f32 sums of a
-    few products of order 1, in window order: within 1e-5."""
+@pytest.mark.parametrize("case", ["edge_D128", "edge_D13", "dense_rows",
+                                  "one_long_row", "no_triples"])
+def test_chunk_schedule_simulation_matches_plain_bitwise(case):
+    """The kernel's schedule, simulated in numpy f32 (each product
+    rounded, then added, in the warp's order), equals ``contract_plain``
+    bit for bit: the triples keep their order, so the sums are the same
+    sums."""
     rng = np.random.default_rng(1)
-    out_rows, u_rows, v_rows, D = 40, 30, 200, 13
-    t = np.sort(rng.integers(0, out_rows, 300))
-    t = t[(t != 3) & (t != 17)]                       # empty rows
-    u = rng.integers(0, u_rows, t.size)
-    v = rng.integers(0, v_rows, t.size)
-    v[t == 5] = np.arange((t == 5).sum()) * 37 % v_rows  # a spread row
-    v[-1] = v_rows - 1                                # the end of V
-    tuv = np.stack([t, u, v])
+    D = 13 if case == "edge_D13" else 128
+    if case.startswith("edge"):
+        tuv, out_rows, u_rows, v_rows, _ = edge_triples(rng)
+    elif case == "dense_rows":       # 40 triples a row: every row spans
+        t = np.repeat(np.arange(50), 40)
+        out_rows, u_rows, v_rows = 50, 60, 70
+        tuv = np.stack([t, rng.integers(0, u_rows, t.size),
+                        rng.integers(0, v_rows, t.size)])
+    elif case == "one_long_row":     # one warp, 1,000 triples
+        out_rows, u_rows, v_rows = 1, 30, 30
+        tuv = np.stack([np.zeros(1000, np.int64),
+                        rng.integers(0, u_rows, 1000),
+                        rng.integers(0, v_rows, 1000)])
+    else:
+        out_rows, u_rows, v_rows = 45, 4, 5
+        tuv = np.zeros((3, 0), np.int64)
+    p = k3.build_chunk_plan(tuv, out_rows, u_rows, v_rows)
+    check_chunks(p)
     U = rng.normal(size=(u_rows, D)).astype(np.float32)
     V = rng.normal(size=(v_rows, D)).astype(np.float32)
     ref = contract_plain(torch.from_numpy(U), torch.from_numpy(V),
                          torch.from_numpy(tuv), out_rows).numpy()
-    n_empty = out_rows - np.unique(t).size
-    for cap, gt in ((16, 64), (8, 1), (200, 10 ** 6), (40, 32)):
-        plan = k3.build_window_plan(tuv, out_rows, u_rows, v_rows, cap=cap,
-                                    group_triples=gt)
-        check_invariants(plan, tuv)
-        np.testing.assert_allclose(run_schedule(plan, U, V), ref, atol=1e-5)
-        if cap <= 16:
-            rows = np.where(plan.piece_row < 0, ~plan.piece_row,
-                            plan.piece_row)
-            assert np.bincount(rows)[5] >= 3     # row 5 spans 3+ windows
-        if gt == 1:
-            # a group a row; an empty row joins the next row's group
-            assert plan.n_groups == out_rows - n_empty
-    empty = k3.build_window_plan(np.zeros((3, 0), np.int64), 7, 4, 5)
-    np.testing.assert_array_equal(run_schedule(empty, U[:4], V[:5]),
-                                  np.zeros((7, D), np.float32))
+    np.testing.assert_array_equal(run_schedule(p, U, V), ref)
 
 
-def test_planner_on_the_giant_graph_groups_communities():
+def test_chunk_plans_on_the_giant_graph_are_k1_orders():
     """On an 8x30 community graph (RCM, hop-1 tuples), the three roles'
-    plans hold the invariants, and a window serves many rows: fewer
-    windows than a tenth of the pieces."""
+    plans are exactly K1's: ``acd`` and the orders of ``backward_orders``,
+    each with ``row_pointer``, plus their warp chunks."""
     rng = np.random.default_rng(0)
     n = 8 * 30
     g = rcm_reorder(Graph(x=np.zeros((n, 1)), edge_index=community_graph(
         rng, 8, 30), edge_attr=None).coalesced())
     tup, acd = hop1(indexing, g.edge_index, n)
-    nnz = tup.shape[1]
-    plans = k3.build_window_plans(acd, nnz, g.num_edges, nnz)
-    a, c, d = acd
-    orders = (acd, np.stack([c, a, d])[:, np.argsort(c, kind="stable")],
-              np.stack([d, c, a])[:, np.argsort(d, kind="stable")])
-    for plan, tuv in zip(plans, orders):
-        check_invariants(plan, tuv)
-        assert plan.n_windows < plan.n_pieces / 10
+    nnz, ne = tup.shape[1] + 7, g.num_edges     # 7 padded tuple rows
+    plans = k3.build_chunk_plans(acd, nnz, ne, nnz)
+    orders = backward_orders(acd, nnz, ne)
+    want = ((acd, row_pointer(acd[0], nnz)), orders["dx"], orders["da"])
+    for p, (tuv, rowptr), rows in zip(plans, want, (nnz, nnz, ne)):
+        np.testing.assert_array_equal(p.tuv, tuv)
+        np.testing.assert_array_equal(p.rowptr, rowptr)
+        np.testing.assert_array_equal(p.warp_row,
+                                      k3.warp_chunks(rowptr))
+        assert p.out_rows == rows and p.tuv.dtype == np.int32
+        check_chunks(p)
+    assert (plans[0].u_rows, plans[0].v_rows) == (nnz, ne)
+    assert (plans[1].u_rows, plans[1].v_rows) == (nnz, ne)
+    assert (plans[2].u_rows, plans[2].v_rows) == (nnz, nnz)
 
 
-def test_planner_refuses_bad_triples():
-    tuv = np.array([[1, 0], [0, 0], [0, 0]])
+def test_chunk_plan_refuses_bad_triples():
     with pytest.raises(ValueError, match="not sorted"):
-        k3.build_window_plan(tuv, 2, 1, 1)
-    with pytest.raises(ValueError, match="out of range"):
-        k3.build_window_plan(np.array([[0], [0], [5]]), 2, 1, 1)
-    with pytest.raises(ValueError, match="at least 1"):
-        k3.build_window_plan(np.array([[0], [0], [0]]), 2, 1, 1, cap=0)
+        k3.build_chunk_plan(np.array([[1, 0], [0, 0], [0, 0]]), 2, 1, 1)
+    with pytest.raises(ValueError, match="t out of range"):
+        k3.build_chunk_plan(np.array([[2], [0], [0]]), 2, 1, 1)
+    with pytest.raises(ValueError, match="u out of range"):
+        k3.build_chunk_plan(np.array([[0], [-1], [0]]), 2, 1, 1)
+    with pytest.raises(ValueError, match="v out of range"):
+        k3.build_chunk_plan(np.array([[0], [0], [5]]), 2, 1, 1)
+    with pytest.raises(ValueError, match=r"\(3, k\)"):
+        k3.build_chunk_plan(np.zeros((2, 4), np.int64), 2, 1, 1)
 
 
 def _pv_case():
@@ -267,7 +263,7 @@ def test_k3_matches_jax_pv_kernel_forward_and_gradients():
     (_, jx_out), (jx_gu, jx_gv) = jax.value_and_grad(
         jx_loss, (0, 1), has_aux=True)(jnp.asarray(U), jnp.asarray(V))
 
-    plans = tuple(p.to("cpu") for p in k3.build_window_plans(
+    plans = tuple(p.to("cpu") for p in k3.build_chunk_plans(
         acd, n_out, n_v, n_out))
     Ut = torch.from_numpy(U).requires_grad_()
     Vt = torch.from_numpy(V).requires_grad_()
@@ -285,7 +281,7 @@ def test_k3_roles_run_their_plans(role, monkeypatch):
     operand's gradient and dA for the second's, each only where a gradient
     is asked for, on the matching plan."""
     acd, n_out, n_v, U, V, W = _pv_case()
-    plans = tuple(p.to("cpu") for p in k3.build_window_plans(
+    plans = tuple(p.to("cpu") for p in k3.build_chunk_plans(
         acd, n_out, n_v, n_out))
     calls = []
     real = k3.contract
@@ -315,7 +311,7 @@ def test_k3_raw_wrapper_refuses():
     that do not match the plan, a plan not moved to the operands' device,
     and mismatched plans in the Function."""
     acd, n_out, n_v, U, V, _ = _pv_case()
-    host = k3.build_window_plans(acd, n_out, n_v, n_out)
+    host = k3.build_chunk_plans(acd, n_out, n_v, n_out)
     plans = tuple(p.to("cpu") for p in host)
     Ut, Vt = torch.from_numpy(U), torch.from_numpy(V)
     with pytest.raises(RuntimeError, match="WindowSpspmmSum"):
@@ -324,7 +320,7 @@ def test_k3_raw_wrapper_refuses():
         k3.contract(k3.FWD, Ut.double(), Vt, plans[0])
     with pytest.raises(ValueError, match="plan is for"):
         k3.contract(k3.FWD, Ut[:-1], Vt, plans[0])
-    with pytest.raises(ValueError, match="WindowPlan.to"):
+    with pytest.raises(ValueError, match="ChunkPlan.to"):
         k3.contract(k3.FWD, Ut, Vt, host[0])
     with pytest.raises(ValueError, match="do not match"):
         k3.WindowSpspmmSum.apply(Ut, Vt, (plans[0], plans[2], plans[1]))
