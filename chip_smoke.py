@@ -190,9 +190,14 @@ def sync():
         torch.cuda.synchronize()
 
 
-def time_ms(fn, flush, reps=30, warmup=5):
+def time_ms(fn, flush, reps=30, warmup=5, settle=True):
     """Median CUDA-event time of ``fn`` over ``reps`` launches, each after
-    ``flush`` has evicted the L2 cache (outside the timed span)."""
+    ``flush`` has evicted the L2 cache (outside the timed span).  With
+    ``settle``, the card then spins in place for about 0.3 ms, with no
+    memory traffic, so the host has queued ``fn``'s launches before the
+    start event is reached: the time is the kernels', not the host's (a
+    wrapper's checks can take longer than the flush).  A step's time,
+    whose host gaps count, is taken with ``settle=False``."""
     import torch
 
     for _ in range(warmup):
@@ -201,6 +206,8 @@ def time_ms(fn, flush, reps=30, warmup=5):
     times = []
     for _ in range(reps):
         flush()
+        if settle:
+            torch.cuda._sleep(500_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -262,8 +269,9 @@ def check_k1(datas, dev, rng, flush):
 
     def compare(role, U, V, tuv, rowptr):
         """Kernel vs plain version: (max abs error, max error over its
-        tolerance); raises where an output row with no triples is not
-        0."""
+        tolerance); raises where an output row with no triples is not 0,
+        or where the kernel's bits differ from the plain version's (both
+        sum each row's rounded products in triple order)."""
         n = rowptr.shape[0] - 1
         out = k1.contract(role, U, V, tuv, rowptr)
         ref = k1.contract_plain(U, V, tuv, n)
@@ -274,6 +282,9 @@ def check_k1(datas, dev, rng, flush):
         empty = (rowptr[1:] == rowptr[:-1])
         if bool((out[empty] != 0).any()):
             raise AssertionError(f"{role.NAME} wrote a non-zero empty row")
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{role.NAME} is not bit for bit equal to "
+                                 f"its plain version")
         diff = (out - ref).abs()
         return (float(diff.max()),
                 float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max()))
@@ -284,16 +295,20 @@ def check_k1(datas, dev, rng, flush):
         errs[role] = err
         print(f"{role.NAME} main shape: {args[2].shape[1]} triples, "
               f"operands {tuple(args[0].shape)} and {tuple(args[1].shape)}, "
-              f"out {(args[3].shape[0] - 1, D)}; max abs err {err:.3e}, "
-              f"{ratio:.3f} of the tolerance {KERNEL_RTOL:g} * sum |terms|")
+              f"out {(args[3].shape[0] - 1, D)}; bit for bit equal to the "
+              f"plain version (max abs err {err:.3e}, {ratio:.3f} of the "
+              f"tolerance {KERNEL_RTOL:g} * sum |terms|)")
         if not ratio <= 1.0:
             raise AssertionError(f"{role.NAME} disagrees with its plain "
                                  f"version: {err}")
 
     # edge cases, for every role: empty rows, one row with many triples, a
     # padded tail, D = 16, a D that is not a multiple of 4 and an
-    # unaligned left operand (both take the scalar loop), no triples; and
-    # the backward orders of a forward case, as the loader builds them
+    # unaligned left operand (both take the scalar loop), no triples; short
+    # rows with a run of 130 empty rows mid-array, rows of 33 and 120
+    # triples over several chunks, 5 triples past a multiple of 32 (every
+    # chunk size); and the backward orders of a forward case, as the
+    # loader builds them
     def case(role, D, rows, u_rows, v_rows, out_rows, misalign=False):
         t_ = np.sort(rows).astype(np.int64)
         tuv = np.stack([t_, rng.integers(0, u_rows, t_.size),
@@ -312,6 +327,11 @@ def check_k1(datas, dev, rng, flush):
 
     heavy = np.concatenate([np.full(2000, 5), rng.integers(0, 900, 3000)])
     heavy = heavy[(heavy != 3) & (heavy != 700)]
+    lens = rng.integers(0, 6, 1000)
+    lens[300:430] = 0
+    lens[[7, 8, 9]] = (120, 33, 32)
+    lens[-1] += (5 - lens.sum()) % 32
+    runs = np.repeat(np.arange(1000), lens)
     cases = {
         "empty + heavy rows, D=128": (128, heavy, 500, 400, 1024),
         "empty + heavy rows, D=16": (16, heavy, 500, 400, 1024),
@@ -319,12 +339,14 @@ def check_k1(datas, dev, rng, flush):
         "unaligned U, D=128 (scalar loop)": (128, heavy, 500, 400, 1024,
                                              True),
         "no triples": (128, np.zeros(0, np.int64), 10, 10, 64),
+        "short rows, 130 empty rows mid-array, rows over several chunks, "
+        "k = 5 mod 32, D=128": (128, runs, 500, 400, 1000),
     }
     for role in k1.ROLES:
         for name, args in cases.items():
             e, r = case(role, *args)
-            print(f"{role.NAME} edge case {name}: max abs err {e:.3e}, "
-                  f"{r:.3f} of the tolerance")
+            print(f"{role.NAME} edge case {name}: bit for bit equal (max "
+                  f"abs err {e:.3e}, {r:.3f} of the tolerance)")
             if not r <= 1.0:
                 raise AssertionError(f"{role.NAME} edge case {name} "
                                      f"disagrees: {e}")
@@ -345,7 +367,8 @@ def check_k1(datas, dev, rng, flush):
                        (k1.DA, (Xc, gc, *orders["da"]))):
         e, r = compare(role, *args)
         print(f"{role.NAME} edge case backward orders of the heavy case: "
-              f"max abs err {e:.3e}, {r:.3f} of the tolerance")
+              f"bit for bit equal (max abs err {e:.3e}, {r:.3f} of the "
+              f"tolerance)")
         if not r <= 1.0:
             raise AssertionError(f"{role.NAME} on backward orders: {e}")
 
@@ -555,7 +578,8 @@ def breakdown(model, predictor, datas, dev, reps=5):
     with torch.inference_mode():
         forward_s = median_s(lambda: model(dd))
         dev_ms = time_ms(lambda: model(dd), lambda: None, reps=reps,
-                         warmup=1) if dev.type == "cuda" else 0.0
+                         warmup=1, settle=False) \
+            if dev.type == "cuda" else 0.0
     print(f"one {predictor.batch_size}-graph batch (median of {reps}): "
           f"host collation {collate_s * 1e3:.3f} ms, copy to the card "
           f"{copy_s * 1e3:.3f} ms, forward {forward_s * 1e3:.3f} ms host "
@@ -714,9 +738,10 @@ def train_timing(card, dev, datas, reps=8, conv="NGNN"):
         parts["fwd+bwd"].append(s)
         _, s = timed(opt.step)
         parts["optimizer"].append(s)
-    dev_ms = time_ms(fwd_bwd, lambda: None, reps=reps, warmup=1)
+    dev_ms = time_ms(fwd_bwd, lambda: None, reps=reps, warmup=1,
+                     settle=False)
     step_ms = time_ms(lambda: train_step(model, opt, batch), lambda: None,
-                      reps=reps, warmup=1)
+                      reps=reps, warmup=1, settle=False)
     med = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
     print(f"{conv}-SS 6x128 training on {card}: {gps:.1f} graphs/s trained "
           f"(one epoch of 8 steps, collation included)")
@@ -974,7 +999,9 @@ def check_k4(datas, dev, rng, flush):
     def compare(role, ops, tuv, rowptr, M=None, gZ=None, goZ=None):
         """Kernel vs plain version: (max abs error, max error over its
         tolerance), over every output of the role; raises on a value that
-        is not finite."""
+        is not finite, or where the kernel's bits differ from the plain
+        version's (the same rounded steps, each row summed in triple
+        order)."""
         rows = rowptr.shape[0] - 1
         got = k4.attend(role, *ops, tuv, rowptr, M, gZ, goZ)
         ref = k4.attention_plain(role, *ops, tuv, rows, M, gZ, goZ)
@@ -987,15 +1014,19 @@ def check_k4(datas, dev, rng, flush):
                                      f"not finite")
             if x.numel() == 0:
                 continue
+            if not torch.equal(x, r):
+                raise AssertionError(f"{role.NAME} is not bit for bit equal "
+                                     f"to its plain version")
             diff = (x - r).abs()
             err = max(err, float(diff.max()))
             ratio = max(ratio, float(
                 (diff / (ATT_RTOL * mag).clamp_min(1e-30)).max()))
         return err, ratio
 
-    def held(what, err, ratio):
-        print(f"{what}: max abs err {err:.3e}, {ratio:.3f} of the tolerance "
-              f"{ATT_RTOL:g} * sum |terms|")
+    def held(what, err, ratio, bitwise=False):
+        print(f"{what}: {'bit for bit equal, ' if bitwise else ''}max abs "
+              f"err {err:.3e}, {ratio:.3f} of the tolerance {ATT_RTOL:g} * "
+              f"sum |terms|")
         if not ratio <= 1.0:
             raise AssertionError(f"{what} disagrees with the plain version: "
                                  f"{err}")
@@ -1015,28 +1046,39 @@ def check_k4(datas, dev, rng, flush):
         errs[role], ratio = compare(role, ops, *args)
         held(f"{role.NAME} main shape: {args[0].shape[1]} triples, a1 "
              f"{tuple(ops[0].shape)}, aA {tuple(ops[2].shape)}, out rows "
-             f"{args[1].shape[0] - 1}", errs[role], ratio)
+             f"{args[1].shape[0] - 1}", errs[role], ratio, True)
 
     # edge cases, for every role: empty rows, a row of one triple and one
     # of 2,000 (its backward orders spread it over many rows); D = 13 and
     # an a1 one float off 16-byte alignment (both take the scalar loop);
-    # and scores scaled 3x, where the TPU kernel's bound shift flushes
+    # scores scaled 3x, where the TPU kernel's bound shift flushes; and
+    # short rows with a run of 130 empty rows mid-array, rows of 9, 33 and
+    # 120 triples over several chunks (the forward walks them twice) and 5
+    # triples past a multiple of 32 (every chunk size)
     x_rows, e_rows = 600, 400
     rows = np.concatenate([np.full(2000, 5), rng.integers(0, 590, 3000),
                            [599]])
-    a = np.sort(rows[(rows != 3) & (rows != 17)])
-    acd = np.stack([a, rng.integers(0, x_rows, a.size),
-                    rng.integers(0, e_rows, a.size)])
-    orders = {r: [torch.from_numpy(x).to(dev) for x in v]
-              for r, v in backward_orders(acd, x_rows, e_rows).items()}
-    e_acd = torch.from_numpy(acd.astype(np.int32)).to(dev)
-    e_rp = torch.from_numpy(row_pointer(a, x_rows)).to(dev)
-    for name, Dc, scale, misalign in (
-            ("empty rows, one-triple and 2,000-triple rows, D=128", 128,
-             1.0, False),
-            ("D=13 (scalar loop)", 13, 1.0, False),
-            ("a1 off 16-byte alignment (scalar loop)", 128, 1.0, True),
-            ("scores scaled 3x", 128, 3.0, False)):
+    heavy = np.sort(rows[(rows != 3) & (rows != 17)])
+    lens = rng.integers(0, 6, x_rows)
+    lens[300:430] = 0
+    lens[[7, 8, 9, 10]] = (120, 33, 32, 9)
+    lens[-1] += (5 - lens.sum()) % 32
+    runs = np.repeat(np.arange(x_rows), lens)
+    for name, a, Dc, scale, misalign in (
+            ("empty rows, one-triple and 2,000-triple rows, D=128", heavy,
+             128, 1.0, False),
+            ("D=13 (scalar loop)", heavy, 13, 1.0, False),
+            ("a1 off 16-byte alignment (scalar loop)", heavy, 128, 1.0,
+             True),
+            ("scores scaled 3x", heavy, 128, 3.0, False),
+            ("short rows, 130 empty rows mid-array, rows over several "
+             "chunks, k = 5 mod 32, D=128", runs, 128, 1.0, False)):
+        acd = np.stack([a, rng.integers(0, x_rows, a.size),
+                        rng.integers(0, e_rows, a.size)])
+        orders = {r: [torch.from_numpy(x).to(dev) for x in v]
+                  for r, v in backward_orders(acd, x_rows, e_rows).items()}
+        e_acd = torch.from_numpy(acd.astype(np.int32)).to(dev)
+        e_rp = torch.from_numpy(row_pointer(a, x_rows)).to(dev)
         eops = [torch.from_numpy((scale * rng.normal(size=(n, Dc)))
                                  .astype(np.float32)).to(dev)
                 for n in (x_rows, x_rows, e_rows, x_rows)]
@@ -1050,7 +1092,8 @@ def check_k4(datas, dev, rng, flush):
                  k4.DC: (*orders["dx"], *egrads),
                  k4.DV: (*orders["da"], *egrads)}
         for role, args in cases.items():
-            held(f"{role.NAME} edge case {name}", *compare(role, eops, *args))
+            held(f"{role.NAME} edge case {name}",
+                 *compare(role, eops, *args), True)
         if scale != 1.0:
             # where the TPU kernel's shift |a2[a]| max|a1| max|aA| lies
             # more than 60 nats above the row's maximum, its denominator
@@ -1374,7 +1417,7 @@ def train_giant(card, dev, inst):
     del model2
     # a step's time, on the first run's model (its steps go on training it)
     step_ms = time_ms(lambda: step(model, Xv, Av, y), lambda: None,
-                      reps=10, warmup=2)
+                      reps=10, warmup=2, settle=False)
     del model
 
     t0 = time.perf_counter()
@@ -1586,7 +1629,7 @@ def train_dense(card, dev):
     sync()
     gps = n / (time.perf_counter() - t0)
     dev_ms = time_ms(lambda: train_step(model, opt, batches[0]),
-                     lambda: None, reps=5, warmup=1)
+                     lambda: None, reps=5, warmup=1, settle=False)
     print(f"PPGN-DD 6x128 training on {card}: {gps:.1f} graphs/s trained "
           f"(one epoch of 8 steps, collation included); one step "
           f"{dev_ms:.3f} ms between CUDA events (median of 5, copy "

@@ -5,10 +5,10 @@
 //     dA:       dV[d, :]  += U[c, :] * g[a, :]   over triples (d, c, a)
 //
 // Each role is one kernel over triples (t, u, v) sorted by the output row
-// t: out[t, :] += L[u, :] * R[v, :], with the triples given as a CSR row
-// pointer over the output rows (rowptr) and two index arrays u, v in that
-// order.  The host builds each role's order (hodata/loader.py add_rowptr),
-// so no role needs atomics.
+// t: out[t, :] += L[u, :] * R[v, :], with the triples given as three index
+// arrays t, u, v in that order and a CSR row pointer over the output rows
+// (rowptr).  The host builds each role's order (hodata/loader.py
+// add_rowptr), so no role needs atomics.
 //
 // Replaces the three roles of the TPU kernel
 // pygho_tpu/kernels/strip_spspmm.py:_strip_kernel (launched by
@@ -19,31 +19,30 @@
 // design is kept.
 //
 // What bounds it on an H100: memory.  Each triple reads one row of L and
-// one of R (2 * D * 4 bytes) plus 8 bytes of indices and does 2 * D
+// one of R (2 * D * 4 bytes) plus 12 bytes of indices and does 2 * D
 // floating-point operations, about 0.25 operations a byte, far below the
 // roughly 20 operations a byte at which f32 arithmetic would start to
 // limit it.  The least traffic is every referenced row of L and R read
-// once, the indices read once and every output row written once.
+// once, the indices read once and every output row written once.  On the
+// main path's batch (60,224 triples, D = 128) that is about 11 us, little
+// more than a launch, and the rows are short: two triples on average in
+// the forward and dX orders, eleven in the dA order.
 //
-// What the design does about it:
-// - one warp per output row and the feature dim across the lanes, so a
-//   row of L or R is read as one coalesced run (float4 loads, 16 bytes a
-//   lane, where D % 4 == 0 and the pointers are 16-byte aligned; a scalar
-//   loop otherwise, for any D);
-// - the warp loads 32 (u, v) pairs at a time with one coalesced load each
-//   and hands them to the lanes by shuffle, so no lane waits on an index
-//   load before each gather;
-// - the sum of each output row stays in registers and is stored once; rows
-//   with no triples store zeros, so the caller allocates the output with
-//   torch.empty;
-// - no atomics: each row is summed by one warp in triple order, so the
-//   result is the same from run to run.  Each product is rounded before
-//   it is added (__fmul_rn, __fadd_rn, no fused multiply-add), which is the
-//   arithmetic of the plain PyTorch version, L[u] * R[v] summed in order.
-// Rows of L and R used by many triples are re-read from L2; keeping them
-// in shared memory is left to a later, faster version.  The dX role has
-// about two triples a row on the main path, so most of a warp's 32-pair
-// index load idles there; that too is left to a later version.
+// The design (chunk_walk.cuh): a warp takes a chunk of C triples of
+// the role (the wrapper passes C, 32 at most) and sums the rows that
+// start in it, kInFlight triples' gathers in registers before their adds;
+// other warps store the zeros of the empty rows.  A first version gave
+// each output row a warp, which waited out its row pointer, its index
+// load and its gathers for two triples and left: 40-44% of the bound.
+// With C = 32 and F = 8, the best of a sweep (scripts/k1_k4_ab_gpu.py),
+// a role takes 6-16% less device time, 49-62% of the bound; with every
+// gather on one row it still takes about half of that time: the stores
+// (16.8 MB in the forward and dX roles) and the launch, not the gathers,
+// are most of what is left.
+// Each product is rounded before it is added (__fmul_rn, __fadd_rn, no
+// fused multiply-add) and each row is summed from 0 in triple order by one
+// warp, which is the arithmetic of the plain PyTorch version, L[u] * R[v]
+// summed in order: every role equals it bit for bit, from run to run.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes: one entry
 // point per role, each launching its own instance of the kernel so a
@@ -53,69 +52,83 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chunk_walk.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
+using chunk_walk::Vec;
 
-__device__ __forceinline__ float4 mul_add(float4 acc, float4 u, float4 v) {
-  acc.x = __fadd_rn(acc.x, __fmul_rn(u.x, v.x));
-  acc.y = __fadd_rn(acc.y, __fmul_rn(u.y, v.y));
-  acc.z = __fadd_rn(acc.z, __fmul_rn(u.z, v.z));
-  acc.w = __fadd_rn(acc.w, __fmul_rn(u.w, v.w));
-  return acc;
-}
-
-__device__ __forceinline__ float mul_add(float acc, float u, float v) {
-  return __fadd_rn(acc, __fmul_rn(u, v));
-}
-
-__device__ __forceinline__ float4 zero_of(float4) {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ float zero_of(float) { return 0.f; }
+constexpr int kWarpsPerBlock = 4;
+// triples whose gathers a warp issues at once, in every role (the sweep
+// of scripts/k1_k4_ab_gpu.py: 4 and 16 are slower)
+constexpr int kInFlight = 8;
 
 enum Role { kForward, kDX, kDA };
 
-// T is float4 (width = D / 4 vectors a row) or float (width = D); the role
-// only names the instance.  U and V are the operands L and R of the role,
-// c and d the index arrays u and v of its triples.
-template <typename T, Role role>
+// out[t] += L[u] * R[v], for chunk_walk::stream_walk
+template <int N>
+struct Contract {
+  const float* __restrict__ U;
+  const float* __restrict__ V;
+  float* __restrict__ out;
+  int64_t D;
+
+  struct Own {};
+  struct Gat {
+    Vec<N> x, y;
+  };
+  using Acc = Vec<N>;
+
+  __device__ static Own zero_own() { return {}; }
+  __device__ static Gat zero_gat() {
+    return {chunk_walk::filled<N>(0.f), chunk_walk::filled<N>(0.f)};
+  }
+  __device__ static Acc zero() { return chunk_walk::filled<N>(0.f); }
+  __device__ Own own(int, int64_t) const { return {}; }
+  __device__ Gat gather(int uj, int vj, int64_t col) const {
+    return {chunk_walk::load<N>(U, (int64_t)uj * D + col),
+            chunk_walk::load<N>(V, (int64_t)vj * D + col)};
+  }
+  __device__ void add(Acc& acc, const Own&, const Gat& g) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      acc.x[i] = __fadd_rn(acc.x[i], __fmul_rn(g.x.x[i], g.y.x[i]));
+  }
+  __device__ void store(int row, int64_t col, const Acc& acc) const {
+    chunk_walk::store<N>(out, (int64_t)row * D + col, acc);
+  }
+};
+
+// Warps [0, n_chunks) take the chunks of `chunk` triples, warps
+// [n_chunks, n_warps) store the zeros of the empty rows.  N floats a lane;
+// the role only names the instance.
+template <int N, Role role>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-spspmm_sum_kernel(const T* __restrict__ U, const T* __restrict__ V,
-                  const int* __restrict__ c, const int* __restrict__ d,
-                  const int* __restrict__ rowptr, T* __restrict__ out,
-                  int64_t out_rows, int64_t width) {
+spspmm_sum_kernel(const float* __restrict__ U, const float* __restrict__ V,
+                  const int* __restrict__ t, const int* __restrict__ u,
+                  const int* __restrict__ v, const int* __restrict__ rowptr,
+                  float* __restrict__ out, int k, int chunk,
+                  int64_t n_chunks, int64_t n_warps, int64_t out_rows,
+                  int64_t D) {
   const int lane = threadIdx.x & 31;
-  const int64_t row =
+  const int64_t w =
       (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= out_rows) return;  // whole warp leaves together
-  const int start = rowptr[row];
-  const int end = rowptr[row + 1];
+  if (w >= n_warps) return;  // whole warp leaves together
+  if (w >= n_chunks) {
+    float* const outs[1] = {out};
+    chunk_walk::zero_rows<N, 1>(outs, rowptr, out_rows, w - n_chunks, lane,
+                                D);
+    return;
+  }
+  chunk_walk::Chunk ch;
+  if (!chunk_walk::load_chunk(w, chunk, k, t, u, v, rowptr, lane, ch))
+    return;
+  const Contract<N> op{U, V, out, D};
+  const int64_t width = D / N;  // lanes' worth of a row
   for (int64_t base = 0; base < width; base += 32) {
-    const int64_t col = base + lane;
-    const bool active = col < width;  // every lane still joins the shuffles
-    T acc = zero_of(T());
-    for (int t0 = start; t0 < end; t0 += 32) {
-      const int n = min(32, end - t0);
-      int my_c = 0, my_d = 0;
-      if (lane < n) {
-        my_c = __ldg(c + t0 + lane);
-        my_d = __ldg(d + t0 + lane);
-      }
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        const int cj = __shfl_sync(kFullMask, my_c, j);
-        const int dj = __shfl_sync(kFullMask, my_d, j);
-        if (active) {
-          const T u = __ldg(U + (int64_t)cj * width + col);
-          const T v = __ldg(V + (int64_t)dj * width + col);
-          acc = mul_add(acc, u, v);
-        }
-      }
-    }
-    if (active) out[row * width + col] = acc;
+    const bool active = base + lane < width;  // all lanes join the shuffles
+    chunk_walk::stream_walk<kInFlight>(op, ch, u, v, lane, active,
+                                       (base + lane) * N);
   }
 }
 
@@ -124,21 +137,28 @@ bool aligned16(const void* p) {
 }
 
 template <Role role>
-int launch(const float* U, const float* V, const int* c, const int* d,
-           const int* rowptr, float* out, int64_t out_rows, int64_t D,
-           void* stream) {
-  if (out_rows <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (out_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+int launch(const float* U, const float* V, const int* t, const int* u,
+           const int* v, const int* rowptr, float* out, int64_t k,
+           int64_t chunk, int64_t out_rows, int64_t D, void* stream) {
+  if (out_rows <= 0 || D <= 0 || k < 0 || k >= 0x7fffffffLL - 32 ||
+      chunk < 1 || chunk > 32)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n_chunks = (k + chunk - 1) / chunk;
+  const int64_t n_warps =
+      n_chunks + (out_rows + chunk_walk::kZeroRows - 1) /
+                     chunk_walk::kZeroRows;
+  const int64_t blocks = (n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)blocks), block(kWarpsPerBlock * 32);
   if (D % 4 == 0 && aligned16(U) && aligned16(V) && aligned16(out)) {
-    spspmm_sum_kernel<float4, role><<<grid, block, 0, s>>>(
-        reinterpret_cast<const float4*>(U), reinterpret_cast<const float4*>(V),
-        c, d, rowptr, reinterpret_cast<float4*>(out), out_rows, D / 4);
+    spspmm_sum_kernel<4, role><<<grid, block, 0, s>>>(
+        U, V, t, u, v, rowptr, out, (int)k, (int)chunk, n_chunks, n_warps,
+        out_rows, D);
   } else {
-    spspmm_sum_kernel<float, role><<<grid, block, 0, s>>>(
-        U, V, c, d, rowptr, out, out_rows, D);
+    spspmm_sum_kernel<1, role><<<grid, block, 0, s>>>(
+        U, V, t, u, v, rowptr, out, (int)k, (int)chunk, n_chunks, n_warps,
+        out_rows, D);
   }
   return (int)cudaGetLastError();
 }
@@ -146,34 +166,24 @@ int launch(const float* U, const float* V, const int* c, const int* d,
 }  // namespace
 
 // Every entry point: U: (u_rows, D) f32 and V: (v_rows, D) f32 (the
-// role's L and R), c and d: int32[k] row indices into U and V (the role's
-// u and v) in output-row order, rowptr:
-// int32[out_rows + 1] with rowptr[0] == 0 and rowptr[out_rows] == k, out:
-// (out_rows, D) f32.  Every index must be in range: the caller checks them
-// on the host.  Returns the cudaGetLastError() of the launch (0 on
-// success).
+// role's L and R), t, u, v: int32[k], the role's triples sorted by t (u
+// and v row indices into U and V), rowptr: int32[out_rows + 1], the row
+// pointer of t (rowptr[0] == 0, rowptr[out_rows] == k), chunk: the
+// triples of a warp's chunk (1 to 32), out: (out_rows, D) f32, written in
+// full.  Every index must be in range: the caller checks them on the
+// host.  Returns the cudaGetLastError() of the launch (0 on success).
+#define SPSPMM_ENTRY(NAME, ROLE)                                            \
+  extern "C" int NAME(const float* U, const float* V, const int* t,        \
+                      const int* u, const int* v, const int* rowptr,       \
+                      float* out, int64_t k, int64_t chunk,                \
+                      int64_t out_rows, int64_t D, void* stream) {         \
+    return launch<ROLE>(U, V, t, u, v, rowptr, out, k, chunk, out_rows, D, \
+                        stream);                                           \
+  }
 
 // forward: out[a] += X[c] * A[d] over (a, c, d); U = X, V = A
-extern "C" int spspmm_sum_fwd_f32(const float* U, const float* V,
-                                  const int* c, const int* d,
-                                  const int* rowptr, float* out,
-                                  int64_t out_rows, int64_t D,
-                                  void* stream) {
-  return launch<kForward>(U, V, c, d, rowptr, out, out_rows, D, stream);
-}
-
+SPSPMM_ENTRY(spspmm_sum_fwd_f32, kForward)
 // dX: dX[c] += g[a] * A[d] over (c, a, d); U = g, V = A
-extern "C" int spspmm_sum_dx_f32(const float* U, const float* V,
-                                 const int* c, const int* d,
-                                 const int* rowptr, float* out,
-                                 int64_t out_rows, int64_t D, void* stream) {
-  return launch<kDX>(U, V, c, d, rowptr, out, out_rows, D, stream);
-}
-
+SPSPMM_ENTRY(spspmm_sum_dx_f32, kDX)
 // dA: dA[d] += X[c] * g[a] over (d, c, a); U = X, V = g
-extern "C" int spspmm_sum_da_f32(const float* U, const float* V,
-                                 const int* c, const int* d,
-                                 const int* rowptr, float* out,
-                                 int64_t out_rows, int64_t D, void* stream) {
-  return launch<kDA>(U, V, c, d, rowptr, out, out_rows, D, stream);
-}
+SPSPMM_ENTRY(spspmm_sum_da_f32, kDA)

@@ -55,8 +55,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives.  The key
+    covers the source, the headers the sources share (``csrc/*.cuh``) and
+    the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 

@@ -65,18 +65,21 @@ from .spspmm_sum import BackwardOrders, Role
 
 SOURCE = "pygho_tpu_torch/csrc/segment_attention.cu"
 
+# each role's chunk of triples a warp (csrc/chunk_walk.cuh), from a sweep
+# of 8, 16 and 32 on the card at the main path's shape
+# (scripts/k1_k4_ab_gpu.py)
 FWD = Role("seg_att_fwd_f32",
            "pygho_tpu/kernels/strip_attention.py:161 (_att_kernel, fwd "
-           "role, math _att_math :83; _att_fwd :483)", SOURCE)
+           "role, math _att_math :83; _att_fwd :483)", SOURCE, chunk=16)
 DW = Role("seg_att_dw_f32",
           "pygho_tpu/kernels/strip_attention.py:161 (_att_kernel, dw role "
-          "on the forward plan; _att_bwd :511)", SOURCE)
+          "on the forward plan; _att_bwd :511)", SOURCE, chunk=16)
 DC = Role("seg_att_dc_f32",
           "pygho_tpu/kernels/strip_attention.py:161 (_att_kernel, dc role "
-          "on the dX plan; _att_bwd :511)", SOURCE)
+          "on the dX plan; _att_bwd :511)", SOURCE, chunk=8)
 DV = Role("seg_att_dv_f32",
           "pygho_tpu/kernels/strip_attention.py:161 (_att_kernel, dv role "
-          "on the dA plan; _att_bwd :511)", SOURCE)
+          "on the dA plan; _att_bwd :511)", SOURCE, chunk=8)
 ROLES = (FWD, DW, DC, DV)
 
 # where a, c and d stand in each role's triples (t, u, v)
@@ -135,9 +138,8 @@ def _lib() -> ctypes.CDLL:
     for role in ROLES:
         fn = getattr(lib, role.NAME)
         if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int64,
-                                                    ctypes.c_int64,
-                                                    ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int64] * 4 \
+                + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return lib
 
@@ -215,11 +217,13 @@ def attend(role: Role, a1: torch.Tensor, a3: torch.Tensor,
         return outs
     ptrs = [x.data_ptr() if x is not None else None
             for x in (a1, a3, aA, a2, M, gZ, goZ)]
-    ptrs += [tuv[1].data_ptr(), tuv[2].data_ptr(), rowptr.data_ptr()]
+    ptrs += [tuv[0].data_ptr(), tuv[1].data_ptr(), tuv[2].data_ptr(),
+             rowptr.data_ptr()]
     ptrs += [x.data_ptr() for x in outs] + [None] * (3 - n_out)
     with torch.cuda.device(a1.device):
         fn = getattr(_lib(), role.NAME)
-        rc = fn(*ptrs, out_rows, D, torch.cuda.current_stream().cuda_stream)
+        rc = fn(*ptrs, tuv.shape[1], role.CHUNK, out_rows, D,
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{role.NAME} launch failed: CUDA error {rc}")
     role.launches += 1

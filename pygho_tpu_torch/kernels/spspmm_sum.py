@@ -11,7 +11,11 @@ The contraction has three roles, each a segment sum over triples
 
 The host gives each role its triples already in that order, with the
 padding stripped and a row pointer built (``hodata.loader.add_rowptr``),
-so each output row is one segment and no role needs atomics.
+so each output row is one segment and no role needs atomics.  The
+kernel gives each warp a chunk of ``role.CHUNK`` triples and the output
+rows that start in it (``csrc/chunk_walk.cuh``); the chunks come from the
+triples' own output rows ``tuv[0]``, so nothing more is built on the
+host.
 
 The raw wrapper :func:`contract` launches a role's hand-written CUDA kernel
 (``csrc/spspmm_sum.cu``) for tensors on a CUDA device and runs the plain
@@ -42,28 +46,33 @@ SOURCE = "pygho_tpu_torch/csrc/spspmm_sum.cu"
 class Role:
     """One role of a kernel: the name of its kernel (also its C entry
     point in ``SOURCE``, the CUDA file), the TPU kernel role it replaces,
-    and the count of its launches since the last reset (only a kernel
-    launch adds to it)."""
+    for kernels that take chunks of triples the triples of a warp's chunk
+    (``CHUNK``, at most 32), and the count of its launches since the last
+    reset (only a kernel launch adds to it)."""
 
-    def __init__(self, name: str, replaces: str, source: str = SOURCE):
+    def __init__(self, name: str, replaces: str, source: str = SOURCE,
+                 chunk: Optional[int] = None):
         self.NAME = name
         self.REPLACES = replaces
         self.SOURCE = source
+        self.CHUNK = chunk
         self.launches = 0
 
     def __repr__(self):
         return f"Role({self.NAME})"
 
 
+# each role's chunk, from a sweep of 8, 16 and 32 on the card at the main
+# path's shape (scripts/k1_k4_ab_gpu.py)
 FWD = Role("spspmm_sum_fwd_f32",
            "pygho_tpu/kernels/strip_spspmm.py:770 (_strip_kernel, forward "
-           "role on the forward plan, :1092)")
+           "role on the forward plan, :1092)", chunk=32)
 DX = Role("spspmm_sum_dx_f32",
           "pygho_tpu/kernels/strip_spspmm.py:770 (_strip_kernel, dX role "
-          "on the dX plan, :1095; _bwd_rule :1127)")
+          "on the dX plan, :1095; _bwd_rule :1127)", chunk=32)
 DA = Role("spspmm_sum_da_f32",
           "pygho_tpu/kernels/strip_spspmm.py:770 (_strip_kernel, dA role "
-          "on the dA plan, :1097; _bwd_rule :1130)")
+          "on the dA plan, :1097; _bwd_rule :1130)", chunk=32)
 ROLES = (FWD, DX, DA)
 
 
@@ -82,9 +91,8 @@ def _lib() -> ctypes.CDLL:
     for role in ROLES:
         fn = getattr(lib, role.NAME)
         if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64,
-                                                   ctypes.c_int64,
-                                                   ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4 \
+                + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return lib
 
@@ -142,9 +150,10 @@ def contract(role: Role, U: torch.Tensor, V: torch.Tensor,
         return out
     with torch.cuda.device(U.device):
         fn = getattr(_lib(), role.NAME)
-        rc = fn(U.data_ptr(), V.data_ptr(), tuv[1].data_ptr(),
-                tuv[2].data_ptr(), rowptr.data_ptr(), out.data_ptr(),
-                out_rows, D, torch.cuda.current_stream().cuda_stream)
+        rc = fn(U.data_ptr(), V.data_ptr(), tuv[0].data_ptr(),
+                tuv[1].data_ptr(), tuv[2].data_ptr(), rowptr.data_ptr(),
+                out.data_ptr(), tuv.shape[1], role.CHUNK, out_rows, D,
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{role.NAME} launch failed: CUDA error {rc}")
     role.launches += 1
