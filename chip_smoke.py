@@ -53,13 +53,35 @@ Phases, each printing its wall seconds:
    three dX launches a step and nothing else, finite losses, a
    bitwise-identical second run and the CPU's losses over
    ``GIANT_CPU_STEPS`` steps; prints ms a step, the plan's host time and
-   the peak device memory.
+   the peak device memory;
+11. NGNN fast serving: phase 4 in the fast numerics mode
+   (``set_fused_math(False)``, the mode of the JAX package's ``--fused``
+   runs and of ``runs/converged/NGNN_sparse.s0.json``), f32 parameters and
+   activations: six ``spspmm_sum_fwd_f32fast`` launches per batch and no
+   other, the CPU's predictions within ``FAST_SERVE_TOL``;
+12. NGNN fast training: phase 5 in the fast mode: each ``*_f32fast`` K1
+   role six times a step and no ``*_f32`` role, a bitwise-identical second
+   run, the CPU's losses (plain versions, fast mode) within the mode's
+   tolerance (``TRAIN_TOLS``), graphs/s trained;
+13. NGNN bf16 training: the same with ``dtype=torch.bfloat16``
+   (``--fused --bf16``), the ``*_bf16fast`` K1 roles;
+14. NGAT fast training: phase 9 in the fast mode, the ``*_f32fast`` K4
+   roles.
+
+The kernels phase holds every fast and bf16 variant of K1 and K4 (the
+roles of phase 3 with operands stored in f32 or bf16, in the exact or the
+fast mode) the same way, bit for bit against its plain version, holds
+``SpspmmSum``'s and ``SegmentAttention``'s gradients in those modes
+against autograd through the plain versions, times each variant beside its
+bound and its plain version, and checks that a variant whose launch is
+refused raises and counts nothing.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero without the last line.  It imports nothing of JAX.
 """
 
+import contextlib
 import copy
 import faulthandler
 import json
@@ -166,6 +188,59 @@ GIANT_RTOL = 1e-4
 # output is K5_RTOL * sum |A[b,i,k,d] * X[b,k,j,d]| over its k
 K5_RTOL = 1e-6
 
+# The fast numerics mode (the JAX package's set_fused_math(False), its
+# --fused runs) and bf16 compute.  Every K1 and K4 variant must equal its
+# plain version bit for bit, as the f32 roles do (the same roundings to
+# bf16, round to nearest even, at the same points).  Their gradients
+# against autograd through the plain version: see check_k1 and check_k4
+FAST_GRAD_RTOL = 2 ** -6
+K4_FAST_GRAD_RTOL = 2 ** -5
+# served predictions in fast mode, card vs CPU: where the card's and the
+# CPU's f32 values differ in their last bits (sums in another order), a
+# term whose operand lies that close to a bf16 rounding boundary rounds
+# the other way and moves by one bf16 step, up to 2^-7 of itself; the CPU
+# run with every norm's sums reordered moves a fast-mode step's loss by
+# 2e-6 (scripts/fast_mode_tolerances.py); ten times SERVE_TOL leaves room
+# for such flips through six layers
+FAST_SERVE_TOL = 1e-3
+# the CPU repeats this many of the bf16 model's ten steps
+BF16_CPU_STEPS = 3
+# per-step losses, card vs CPU, by configuration and variant: (CPU steps,
+# max relative difference).  f32: TRAIN_RTOL.  Fast mode: the same; the
+# flips above move ten steps' losses by at most 8.4e-5 on the CPU when
+# every norm's sums are reordered (scripts/fast_mode_tolerances.py).
+# bf16 compute: every activation is rounded to bf16 (up to 2^-8 of it),
+# so differences in the last f32 bits flip roundings everywhere (1.1e-4
+# over three steps in the same script), and the card's deterministic bf16
+# segment sums accumulate in f32 where the CPU's round after each add:
+# BF16_TRAIN_RTOL.  NGAT in fast mode: on the card its projections take
+# bf16 inputs (as the JAX layer's do on its accelerator), on the CPU they
+# stay f32 (as the JAX layer's do on the CPU), a difference of up to
+# 2^-8 of each input; the same script, taking them on one side, gives
+# 8.9e-4 over five steps: NGAT_FAST_TRAIN_RTOL
+BF16_TRAIN_RTOL = 5e-3
+NGAT_FAST_TRAIN_RTOL = 1e-2
+# the variants held against their plain versions beside the f32 ones
+FAST_VARIANTS = ((None, False), ("bf16", True), ("bf16", False))
+# kernels that no main path of this script launches: K3's dA role (the
+# giant step takes parameter gradients only, as JAX's does), and the bf16
+# variants that keep exact products (a bf16 model in exact mode, which the
+# JAX package runs without --fused; the smoke trains the bf16 model in the
+# fast mode of --fused --bf16) and K4's bf16 variants (NGAT's attention
+# runs in f32 whatever the compute dtype, as the JAX layer's does): each
+# is held against its plain version in the kernels phase
+UNLAUNCHED = {"window_spspmm_da_f32", "spspmm_sum_fwd_bf16",
+              "spspmm_sum_dx_bf16", "spspmm_sum_da_bf16",
+              "seg_att_fwd_bf16", "seg_att_dw_bf16", "seg_att_dc_bf16",
+              "seg_att_dv_bf16", "seg_att_fwd_bf16fast",
+              "seg_att_dw_bf16fast", "seg_att_dc_bf16fast",
+              "seg_att_dv_bf16fast"}
+TRAIN_TOLS = {("NGNN", "f32"): (CPU_STEPS, TRAIN_RTOL),
+              ("NGAT", "f32"): (NGAT_CPU_STEPS, TRAIN_RTOL),
+              ("NGNN", "f32fast"): (CPU_STEPS, TRAIN_RTOL),
+              ("NGNN", "bf16fast"): (BF16_CPU_STEPS, BF16_TRAIN_RTOL),
+              ("NGAT", "f32fast"): (NGAT_CPU_STEPS, NGAT_FAST_TRAIN_RTOL)}
+
 
 def phase(name):
     print(f"== {name}", flush=True)
@@ -218,35 +293,87 @@ def time_ms(fn, flush, reps=30, warmup=5, settle=True):
     return statistics.median(times)
 
 
-def k1_bound(tuv, out_rows, D):
+def k1_bound(tuv, out_rows, D, sizes=(4, 4), ops=2):
     """The least time of one K1 role on the card: every referenced row of
-    its two operands read once, its index arrays and row pointer read
-    once, every output row written once, against its f32 operations.
-    Returns (ms, "bytes" or "operations", bytes, operations)."""
+    its two operands read once (``sizes``: their bytes a value, 2 for a
+    bf16 operand), its index arrays and row pointer read once, every f32
+    output row written once, against its ``ops`` operations a triple and
+    channel (a product and a sum; in fast mode one more for each
+    rounding to bf16).  Returns (ms, "bytes" or "operations", bytes,
+    operations)."""
     import torch
 
     k = tuv.shape[1]
     u_read = int(torch.unique(tuv[1]).numel())
     v_read = int(torch.unique(tuv[2]).numel())
-    nbytes = (u_read + v_read + out_rows) * D * 4 + k * 2 * 4 \
-        + (out_rows + 1) * 4
-    flops = 2 * k * D
+    nbytes = (u_read * sizes[0] + v_read * sizes[1] + out_rows * 4) * D \
+        + k * 2 * 4 + (out_rows + 1) * 4
+    flops = ops * k * D
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def check_k1(datas, dev, rng, flush):
-    """K1's three roles at the main path's shapes and on edge cases,
-    against their plain version on the card, and ``SpspmmSum``'s
-    gradients against autograd through the plain version.  Returns the
-    roles' lines of the report."""
+def mode_name(dtype=None, exact=True):
+    """The variant suffix of a stored dtype and math mode: f32, f32fast,
+    bf16 or bf16fast."""
+    import torch
+
+    bf16 = dtype == torch.bfloat16
+    return ("bf16" if bf16 else "f32") + ("" if exact else "fast")
+
+
+def rounded_ops(role_ops, dtype, exact, base=0):
+    """Operations a triple and channel of a role: ``base`` arithmetic and,
+    in fast mode, one rounding to bf16 for each f32 operand read (the
+    role's operands other than the cotangent-side ones, which
+    ``role_ops`` = (stored operands, f32 operands read, terms) counts)
+    and each term."""
+    import torch
+
+    stored, f32_read, terms = role_ops
+    if exact:
+        return base
+    return base + terms + f32_read + (0 if dtype == torch.bfloat16
+                                      else stored)
+
+
+def check_launch_failure(role, call):
+    """A variant whose entry point refuses its launch (a chunk of 0
+    triples: cudaErrorInvalidValue) raises, counts no launch and returns
+    nothing: no other entry point or plain version takes over."""
+    saved, before = role.CHUNK, role.launches
+    role.CHUNK = 0
+    try:
+        call()
+    except RuntimeError as err:
+        if role.NAME not in str(err):
+            raise AssertionError(f"{role.NAME}: the failure names another "
+                                 f"kernel: {err}") from err
+    else:
+        raise AssertionError(f"{role.NAME}: a refused launch did not raise")
+    finally:
+        role.CHUNK = saved
+    if role.launches != before:
+        raise AssertionError(f"{role.NAME}: a refused launch was counted")
+    print(f"{role.NAME}: a refused launch raises and counts nothing")
+
+
+def check_k1(datas, dev, rng, flush, dtype=None, exact=True):
+    """K1's three roles, in the variant of operands stored as ``dtype``
+    (f32 unless given) in the math mode ``exact``, at the main path's
+    shapes and on edge cases, against their plain version on the card,
+    and ``SpspmmSum``'s gradients against autograd through the plain
+    version; for a fast or bf16 variant also a refused launch.  Returns
+    the roles' lines of the report."""
     import numpy as np
     import torch
 
     from pygho_tpu_torch.hodata.loader import SpDataloader, backward_orders
     from pygho_tpu_torch.kernels import spspmm_sum as k1
 
+    dtype = dtype or torch.float32
+    variant = {r: r.variant(dtype, exact) for r in k1.ROLES}
     batch = next(iter(SpDataloader(datas, 128, [KEY], backward=True)))
     nt, ne = batch["tupleid"].shape[1], batch["edge_index"].shape[1]
     n_t, n_e = int(batch["num_tuples"]), int(batch["num_edges"])
@@ -257,15 +384,21 @@ def check_k1(datas, dev, rng, flush):
         x[:real] = rng.normal(size=(real, D))
         return torch.from_numpy(x).to(dev)
 
+    def stored(role, L, R):
+        """The role's operands as the variant reads them: the cotangent
+        (dX's L, dA's R) in f32, the others in ``dtype``."""
+        return (L if role is k1.DX else L.to(dtype),
+                R if role is k1.DA else R.to(dtype))
+
     U, V, g = operand(nt, n_t), operand(ne, n_e), operand(nt, n_t)
     t = {name: torch.from_numpy(batch[f"{KEY}___{name}"]).to(dev)
          for name in ("acd", "rowptr", "acd_dx", "rowptr_dx", "acd_da",
                       "rowptr_da")}
     # each role's operands at the main path's shapes: forward
     # out[a] += U[c] * V[d], dX dU[c] += g[a] * V[d], dA dV[d] += U[c] * g[a]
-    main = {k1.FWD: (U, V, t["acd"], t["rowptr"]),
-            k1.DX: (g, V, t["acd_dx"], t["rowptr_dx"]),
-            k1.DA: (U, g, t["acd_da"], t["rowptr_da"])}
+    main = {k1.FWD: (*stored(k1.FWD, U, V), t["acd"], t["rowptr"]),
+            k1.DX: (*stored(k1.DX, g, V), t["acd_dx"], t["rowptr_dx"]),
+            k1.DA: (*stored(k1.DA, U, g), t["acd_da"], t["rowptr_da"])}
 
     def compare(role, U, V, tuv, rowptr):
         """Kernel vs plain version: (max abs error, max error over its
@@ -273,18 +406,19 @@ def check_k1(datas, dev, rng, flush):
         or where the kernel's bits differ from the plain version's (both
         sum each row's rounded products in triple order)."""
         n = rowptr.shape[0] - 1
-        out = k1.contract(role, U, V, tuv, rowptr)
-        ref = k1.contract_plain(U, V, tuv, n)
-        mag = k1.contract_plain(U.abs(), V.abs(), tuv, n)
+        out = k1.contract(role, U, V, tuv, rowptr, exact)
+        ref = k1.contract_plain(U, V, tuv, n, exact)
+        mag = k1.contract_plain(U.abs(), V.abs(), tuv, n, exact)
         sync()
         if out.numel() == 0:
             return 0.0, 0.0
         empty = (rowptr[1:] == rowptr[:-1])
         if bool((out[empty] != 0).any()):
-            raise AssertionError(f"{role.NAME} wrote a non-zero empty row")
+            raise AssertionError(f"{variant[role].NAME} wrote a non-zero "
+                                 f"empty row")
         if not torch.equal(out, ref):
-            raise AssertionError(f"{role.NAME} is not bit for bit equal to "
-                                 f"its plain version")
+            raise AssertionError(f"{variant[role].NAME} is not bit for bit "
+                                 f"equal to its plain version")
         diff = (out - ref).abs()
         return (float(diff.max()),
                 float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max()))
@@ -293,14 +427,14 @@ def check_k1(datas, dev, rng, flush):
     for role, args in main.items():
         err, ratio = compare(role, *args)
         errs[role] = err
-        print(f"{role.NAME} main shape: {args[2].shape[1]} triples, "
-              f"operands {tuple(args[0].shape)} and {tuple(args[1].shape)}, "
-              f"out {(args[3].shape[0] - 1, D)}; bit for bit equal to the "
-              f"plain version (max abs err {err:.3e}, {ratio:.3f} of the "
-              f"tolerance {KERNEL_RTOL:g} * sum |terms|)")
+        print(f"{variant[role].NAME} main shape: {args[2].shape[1]} "
+              f"triples, operands {tuple(args[0].shape)} and "
+              f"{tuple(args[1].shape)}, out {(args[3].shape[0] - 1, D)}; bit "
+              f"for bit equal to the plain version (max abs err {err:.3e}, "
+              f"{ratio:.3f} of the tolerance {KERNEL_RTOL:g} * sum |terms|)")
         if not ratio <= 1.0:
-            raise AssertionError(f"{role.NAME} disagrees with its plain "
-                                 f"version: {err}")
+            raise AssertionError(f"{variant[role].NAME} disagrees with its "
+                                 f"plain version: {err}")
 
     # edge cases, for every role: empty rows, one row with many triples, a
     # padded tail, D = 16, a D that is not a multiple of 4 and an
@@ -317,11 +451,13 @@ def check_k1(datas, dev, rng, flush):
         rp[1:] = np.cumsum(np.bincount(t_, minlength=out_rows))
         Ut = torch.from_numpy(rng.normal(size=(u_rows, D))
                               .astype(np.float32)).to(dev)
-        if misalign:
-            flat = torch.empty(u_rows * D + 1, device=dev)[1:]
-            Ut = flat.view(u_rows, D).copy_(Ut)
         Vt = torch.from_numpy(rng.normal(size=(v_rows, D))
                               .astype(np.float32)).to(dev)
+        Ut, Vt = stored(role, Ut, Vt)
+        if misalign:
+            flat = torch.empty(u_rows * D + 1, device=dev,
+                               dtype=Ut.dtype)[1:]
+            Ut = flat.view(u_rows, D).copy_(Ut)
         return compare(role, Ut, Vt, torch.from_numpy(tuv).to(dev),
                        torch.from_numpy(rp).to(dev))
 
@@ -345,11 +481,11 @@ def check_k1(datas, dev, rng, flush):
     for role in k1.ROLES:
         for name, args in cases.items():
             e, r = case(role, *args)
-            print(f"{role.NAME} edge case {name}: bit for bit equal (max "
-                  f"abs err {e:.3e}, {r:.3f} of the tolerance)")
+            print(f"{variant[role].NAME} edge case {name}: bit for bit "
+                  f"equal (max abs err {e:.3e}, {r:.3f} of the tolerance)")
             if not r <= 1.0:
-                raise AssertionError(f"{role.NAME} edge case {name} "
-                                     f"disagrees: {e}")
+                raise AssertionError(f"{variant[role].NAME} edge case "
+                                     f"{name} disagrees: {e}")
     # the heavy forward case's backward orders: a 2,000-triple forward row
     # spreads over the backward roles' rows
     a = np.sort(heavy)
@@ -363,73 +499,100 @@ def check_k1(datas, dev, rng, flush):
         .to(dev)
     orders = {r: [torch.from_numpy(x).to(dev) for x in v]
               for r, v in backward_orders(acd, 500, 400).items()}
-    for role, args in ((k1.DX, (gc, Ac, *orders["dx"])),
-                       (k1.DA, (Xc, gc, *orders["da"]))):
+    for role, args in ((k1.DX, (*stored(k1.DX, gc, Ac), *orders["dx"])),
+                       (k1.DA, (*stored(k1.DA, Xc, gc), *orders["da"]))):
         e, r = compare(role, *args)
-        print(f"{role.NAME} edge case backward orders of the heavy case: "
-              f"bit for bit equal (max abs err {e:.3e}, {r:.3f} of the "
+        print(f"{variant[role].NAME} edge case backward orders of the heavy "
+              f"case: bit for bit equal (max abs err {e:.3e}, {r:.3f} of the "
               f"tolerance)")
         if not r <= 1.0:
-            raise AssertionError(f"{role.NAME} on backward orders: {e}")
+            raise AssertionError(f"{variant[role].NAME} on backward orders: "
+                                 f"{e}")
 
-    # SpspmmSum's gradients on the card against autograd through the
-    # plain version, for a random cotangent W
+    # SpspmmSum's gradients on the card against autograd through the plain
+    # version, for a random cotangent W.  Exact f32: the same rounded
+    # products, KERNEL_RTOL.  Fast or bf16: the kernel rounds each term of
+    # a gradient (fast) and stores the gradient in bf16 (bf16 operands),
+    # where autograd through the plain version rounds the cotangent and
+    # the whole sum instead.  A rounding to bf16 moves a value by at most
+    # 2^-8 of it: each term on one side, the sum once or twice on the
+    # other, at most 3 * 2^-8 of the sum of |terms|; FAST_GRAD_RTOL =
+    # 2^-6 leaves room for the f32 sums' order
     W = operand(nt, n_t)
+    rtol = KERNEL_RTOL if (dtype == torch.float32 and exact) \
+        else FAST_GRAD_RTOL
+    Us, Vs = main[k1.FWD][0], main[k1.FWD][1]
     bwd = (t["acd_dx"], t["rowptr_dx"], t["acd_da"], t["rowptr_da"])
-    Uk, Vk = U.clone().requires_grad_(), V.clone().requires_grad_()
-    (k1.SpspmmSum.apply(Uk, Vk, t["acd"], t["rowptr"], bwd) * W) \
+    Uk, Vk = Us.clone().requires_grad_(), Vs.clone().requires_grad_()
+    (k1.SpspmmSum.apply(Uk, Vk, t["acd"], t["rowptr"], bwd, exact) * W) \
         .sum().backward()
-    Up, Vp = U.clone().requires_grad_(), V.clone().requires_grad_()
-    (k1.contract_plain(Up, Vp, t["acd"], nt) * W).sum().backward()
+    Up, Vp = Us.clone().requires_grad_(), Vs.clone().requires_grad_()
+    (k1.contract_plain(Up, Vp, t["acd"], nt, exact) * W).sum().backward()
     with torch.no_grad():
-        mags = (k1.contract_plain(W.abs(), V.abs(), t["acd_dx"], nt),
-                k1.contract_plain(U.abs(), W.abs(), t["acd_da"], ne))
+        mags = (k1.contract_plain(W.abs(), Vs.abs(), t["acd_dx"], nt, exact),
+                k1.contract_plain(Us.abs(), W.abs(), t["acd_da"], ne, exact))
     for what, got, ref, mag in (("grad_U", Uk.grad, Up.grad, mags[0]),
                                 ("grad_V", Vk.grad, Vp.grad, mags[1])):
-        diff = (got - ref).abs()
-        ratio = float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max())
-        print(f"SpspmmSum {what} vs autograd through the plain version: "
-              f"max abs err {float(diff.max()):.3e}, {ratio:.3f} of the "
-              f"tolerance")
+        if got.dtype != ref.dtype:
+            raise AssertionError(f"SpspmmSum {what} is {got.dtype}")
+        diff = (got.float() - ref.float()).abs()
+        ratio = float((diff / (rtol * mag).clamp_min(1e-30)).max())
+        print(f"SpspmmSum ({mode_name(dtype, exact)}) {what} vs autograd "
+              f"through the plain version: max abs err "
+              f"{float(diff.max()):.3e}, {ratio:.3f} of the tolerance "
+              f"{rtol:g} * sum |terms|")
         if not ratio <= 1.0:
             raise AssertionError(f"SpspmmSum {what} disagrees")
 
+    if dev.type == "cuda" and not (dtype == torch.float32 and exact):
+        for role, args in main.items():
+            check_launch_failure(
+                variant[role], lambda: k1.contract(role, *args, exact))
+
     report = []
+    sizes = {k1.FWD: (2, 2), k1.DX: (4, 2), k1.DA: (2, 4)} \
+        if dtype == torch.bfloat16 else {r: (4, 4) for r in k1.ROLES}
+    # (stored operands, f32 operands read, terms) a triple
+    reads = {k1.FWD: (2, 0, 1), k1.DX: (1, 1, 1), k1.DA: (1, 1, 1)}
     for role, args in main.items():
+        name = variant[role].NAME
         tuv, rowptr = args[2], args[3]
         out_rows = rowptr.shape[0] - 1
-        ms = time_ms(lambda: k1.contract(role, *args), flush)
+        ms = time_ms(lambda: k1.contract(role, *args, exact), flush)
         # the plain version with atomic index_add_ (deterministic
         # algorithms off), and in the parity mode (sorted index_add_)
         torch.use_deterministic_algorithms(False)
-        plain_ms = time_ms(lambda: k1.contract_plain(args[0], args[1], tuv,
-                                                     out_rows), flush)
+        plain_ms = time_ms(lambda: k1.contract_plain(
+            args[0], args[1], tuv, out_rows, exact), flush)
         torch.use_deterministic_algorithms(True)
         plain_det_ms = time_ms(
-            lambda: k1.contract_plain(args[0], args[1], tuv, out_rows),
-            flush)
+            lambda: k1.contract_plain(args[0], args[1], tuv, out_rows,
+                                      exact), flush)
         # inputs left in L2: the card first spins in place (no memory
         # traffic), so the launch is queued before the start event is
         # reached and the time is the kernel's, not the host's
-        warm_ms = time_ms(lambda: k1.contract(role, *args),
+        warm_ms = time_ms(lambda: k1.contract(role, *args, exact),
                           lambda: torch.cuda._sleep(1_000_000))
         # host cost of one wrapper call: checks, ctypes call, enqueue
         sync()
         t0 = time.perf_counter()
         for _ in range(100):
-            k1.contract(role, *args)
+            k1.contract(role, *args, exact)
         host_us = (time.perf_counter() - t0) / 100 * 1e6
         sync()
-        bound_ms, bound_by, nbytes, flops = k1_bound(tuv, out_rows, D)
-        print(f"{role.NAME} timing (L2 flushed before each launch, median "
+        bound_ms, bound_by, nbytes, flops = k1_bound(
+            tuv, out_rows, D, sizes[role],
+            rounded_ops(reads[role], dtype, exact, base=2))
+        print(f"{name} timing (L2 flushed before each launch, median "
               f"of 30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"(deterministic plain {plain_det_ms:.4f} ms); bound "
               f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, {flops} "
               f"f32 operations at 67 TFLOP/s); kernel with its inputs "
               f"left in L2 {warm_ms:.4f} ms; host time of one wrapper call "
               f"{host_us:.1f} us")
-        report.append({"name": role.NAME, "route": "cuda",
-                       "source": role.SOURCE, "replaces": role.REPLACES,
+        report.append({"name": name, "route": "cuda",
+                       "source": variant[role].SOURCE,
+                       "replaces": variant[role].REPLACES,
                        "launches": None, "max_abs_err": errs[role],
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": None})
@@ -456,32 +619,56 @@ def calibrate_batchnorm(model, predictor, datas):
     model.eval()
 
 
-def sparse_model(conv, device):
-    """The sparse configuration ``SPARSE[conv]``, weights from seed 0."""
+def sparse_model(conv, device, dtype=None):
+    """The sparse configuration ``SPARSE[conv]``, weights from seed 0,
+    computing in ``dtype`` (f32 unless given)."""
     from pygho_tpu_torch.models import make_sp_model
 
-    return make_sp_model(conv, seed=0, device=device,
+    return make_sp_model(conv, seed=0, device=device, dtype=dtype,
                          **copy.deepcopy(SPARSE[conv]))
 
 
-def sparse_roles(conv):
-    """The kernel roles that ``conv``'s layers launch (K1's or K4's)."""
+def sparse_roles(conv, dtype=None, exact=True):
+    """The kernel roles that ``conv``'s layers launch (K1's or K4's) in
+    the variant of the model's compute dtype (NGAT's attention runs in f32
+    whatever it is) and the math mode ``exact``, the forward first."""
+    import torch
+
     from pygho_tpu_torch.kernels import KERNELS
 
-    return [mod for mod in KERNELS if mod.SOURCE.endswith(SPARSE_SOURCE[conv])]
+    if conv == "NGAT":
+        dtype = None
+    bases = [mod for mod in KERNELS if mod.base is mod
+             and mod.SOURCE.endswith(SPARSE_SOURCE[conv])]
+    return [mod.variant(dtype or torch.float32, exact) for mod in bases]
+
+
+@contextlib.contextmanager
+def math_mode(exact):
+    """``with math_mode(exact):`` runs its body in the math mode ``exact``
+    (``set_fused_math``) and restores the mode before it."""
+    from pygho_tpu_torch.kernels import get_fused_math, set_fused_math
+
+    was = get_fused_math()
+    set_fused_math(exact)
+    try:
+        yield
+    finally:
+        set_fused_math(was)
 
 
 def serve(graphs, rng, dev, conv="NGNN"):
-    """``conv``-SS 6x128 through SpPredictor on ``dev``, then on the
-    CPU."""
+    """``conv``-SS 6x128 through SpPredictor on ``dev``, then on the CPU,
+    in the math mode set (``set_fused_math``)."""
     import numpy as np
     import torch
 
     from pygho_tpu_torch.hodata import KhopSampler
     from pygho_tpu_torch.honn import parse_precomputekey
-    from pygho_tpu_torch.kernels import KERNELS
+    from pygho_tpu_torch.kernels import KERNELS, get_fused_math
     from pygho_tpu_torch.models import SpPredictor
 
+    exact = get_fused_math()
     model = sparse_model(conv, dev)
     keys = parse_precomputekey(model)
     if keys != [KEY]:
@@ -509,7 +696,7 @@ def serve(graphs, rng, dev, conv="NGNN"):
           f"batches, {[f'{w:.3f}' for w in walls]} s; kernel launches "
           f"{launches}")
     expected = {mod.NAME: 0 for mod in KERNELS}
-    expected[sparse_roles(conv)[0].NAME] = \
+    expected[sparse_roles(conv, exact=exact)[0].NAME] = \
         SPARSE[conv]["num_layer"] * n_batches
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
@@ -533,9 +720,10 @@ def serve(graphs, rng, dev, conv="NGNN"):
     cpu_full, cpu_part = cpu(graphs), cpu([graphs[i] for i in subset])
     diff = max(float(np.abs(cpu_full - full).max()),
                float(np.abs(cpu_part - part).max()))
+    tol = SERVE_TOL if exact else FAST_SERVE_TOL
     print(f"card vs CPU (plain versions): max abs difference {diff:.3e} "
-          f"(tolerance {SERVE_TOL:g})")
-    if not diff <= SERVE_TOL:
+          f"(tolerance {tol:g})")
+    if not diff <= tol:
         raise AssertionError(f"card and CPU disagree by {diff}")
 
     # throughput, after the checks: raw graphs (host precompute included)
@@ -586,14 +774,15 @@ def breakdown(model, predictor, datas, dev, reps=5):
           f"wall / {dev_ms:.3f} ms between CUDA events")
 
 
-def train_run(device, batches, steps, per_step=None, conv="NGNN"):
-    """``conv``-SS 6x128 from seed 0, ``steps`` AdamW steps at lr 1e-3 on
-    ``batches`` through the port's ``make_sparse_steps``.  Returns the
-    per-step losses and the model.  ``per_step(i)`` runs after each
-    step."""
+def train_run(device, batches, steps, per_step=None, conv="NGNN",
+              dtype=None):
+    """``conv``-SS 6x128 from seed 0, computing in ``dtype``, ``steps``
+    AdamW steps at lr 1e-3 on ``batches`` through the port's
+    ``make_sparse_steps``, in the math mode set.  Returns the per-step
+    losses and the model.  ``per_step(i)`` runs after each step."""
     from pygho_tpu_torch.models import make_optimizer, make_sparse_steps
 
-    model = sparse_model(conv, device)
+    model = sparse_model(conv, device, dtype)
     model.train()
     opt = make_optimizer(model, TRAIN_LR)
     train_step, _ = make_sparse_steps()
@@ -605,16 +794,20 @@ def train_run(device, batches, steps, per_step=None, conv="NGNN"):
     return [float(x) for x in losses], model
 
 
-def training(card, dev, conv="NGNN"):
-    """``conv``-SS 6x128 trains on the card: launch counts per step, finite
-    losses, two runs bitwise identical, the CPU run's losses within
-    TRAIN_RTOL; then graphs/s trained, a per-step breakdown and the peak
-    device memory.  Returns the launches of the first training run."""
+def training(card, dev, conv="NGNN", dtype=None):
+    """``conv``-SS 6x128 trains on the card, computing in ``dtype`` in the
+    math mode set (``set_fused_math``): launch counts per step, finite
+    losses, two runs bitwise identical, the CPU run's losses within the
+    mode's tolerance (:data:`TRAIN_TOLS`); then graphs/s trained, a
+    per-step breakdown and the peak device memory.  Returns the launches
+    of the first training run."""
     import torch
 
     from pygho_tpu_torch.hodata import (KhopSampler, SpDataloader,
                                         Sppretransform, synthetic_zinc)
-    from pygho_tpu_torch.kernels import KERNELS
+    from pygho_tpu_torch.kernels import KERNELS, get_fused_math
+
+    exact = get_fused_math()
 
     t0 = time.perf_counter()
     pre = Sppretransform(partial(KhopSampler, hop=3), [""], [KEY])
@@ -640,7 +833,7 @@ def training(card, dev, conv="NGNN"):
     for mod in KERNELS:
         mod.launches = 0
     t0 = time.perf_counter()
-    losses, model = train_run(dev, batches, TRAIN_STEPS, read, conv)
+    losses, model = train_run(dev, batches, TRAIN_STEPS, read, conv, dtype)
     sync()
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -650,7 +843,7 @@ def training(card, dev, conv="NGNN"):
     print(f"trained {TRAIN_STEPS} steps in {run_s:.3f} s; losses "
           f"{[f'{x:.6f}' for x in losses]}; kernel launches {launches}; "
           f"peak device memory {peak / 2 ** 30:.3f} GiB ({peak} bytes)")
-    mine = {mod.NAME for mod in sparse_roles(conv)}
+    mine = {mod.NAME for mod in sparse_roles(conv, dtype, exact)}
     want = {mod.NAME: SPARSE[conv]["num_layer"] if mod.NAME in mine else 0
             for mod in KERNELS}
     for i, c in enumerate(per_step):
@@ -659,7 +852,8 @@ def training(card, dev, conv="NGNN"):
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
 
-    again, model2 = train_run(dev, batches, TRAIN_STEPS, conv=conv)
+    again, model2 = train_run(dev, batches, TRAIN_STEPS, conv=conv,
+                              dtype=dtype)
     state, state2 = model.state_dict(), model2.state_dict()
     same = again == losses and all(torch.equal(state[k], state2[k])
                                    for k in state)
@@ -669,24 +863,28 @@ def training(card, dev, conv="NGNN"):
         raise AssertionError(f"two runs differ: {losses} vs {again}")
     del model, model2, state, state2
 
-    cpu_steps = CPU_STEPS if conv == "NGNN" else NGAT_CPU_STEPS
+    cpu_steps, tol = TRAIN_TOLS[(conv, mode_name(dtype, exact))]
     t0 = time.perf_counter()
-    cpu_losses, _ = train_run("cpu", batches, cpu_steps, conv=conv)
+    cpu_losses, _ = train_run("cpu", batches, cpu_steps, conv=conv,
+                              dtype=dtype)
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
     print(f"card vs CPU (plain versions), the first {cpu_steps} steps in "
           f"{time.perf_counter() - t0:.3f} s on the CPU: max relative loss "
-          f"difference {rel:.3e} (tolerance {TRAIN_RTOL:g}); CPU losses "
+          f"difference {rel:.3e} (tolerance {tol:g}); CPU losses "
           f"{[f'{x:.6f}' for x in cpu_losses]}")
-    if not rel <= TRAIN_RTOL:
+    if not rel <= tol:
         raise AssertionError(f"card and CPU losses differ by {rel}")
 
-    train_timing(card, dev, datas, conv=conv)
-    print(f"{conv}-SS 6x128 training: peak device memory "
-          f"{peak / 2 ** 30:.3f} GiB ({peak} bytes) over the first run")
+    train_timing(card, dev, datas, conv=conv, dtype=dtype,
+                 what=f"{conv}-SS 6x128 ({mode_name(dtype, exact)})")
+    print(f"{conv}-SS 6x128 ({mode_name(dtype, exact)}) training: peak "
+          f"device memory {peak / 2 ** 30:.3f} GiB ({peak} bytes) over the "
+          f"first run")
     return launches
 
 
-def train_timing(card, dev, datas, reps=8, conv="NGNN"):
+def train_timing(card, dev, datas, reps=8, conv="NGNN", dtype=None,
+                 what=None):
     """Prints graphs/s trained over one epoch of the loader (collation
     included, one sync at the end), then one step's breakdown: host
     collation, the copy to the card, forward+backward and the optimizer
@@ -697,7 +895,7 @@ def train_timing(card, dev, datas, reps=8, conv="NGNN"):
     from pygho_tpu_torch.models import (make_optimizer, make_sparse_steps,
                                         masked_l1_loss)
 
-    model = sparse_model(conv, dev)
+    model = sparse_model(conv, dev, dtype)
     model.train()
     opt = make_optimizer(model, TRAIN_LR)
     train_step, _ = make_sparse_steps()
@@ -743,7 +941,8 @@ def train_timing(card, dev, datas, reps=8, conv="NGNN"):
     step_ms = time_ms(lambda: train_step(model, opt, batch), lambda: None,
                       reps=reps, warmup=1, settle=False)
     med = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
-    print(f"{conv}-SS 6x128 training on {card}: {gps:.1f} graphs/s trained "
+    what = what or f"{conv}-SS 6x128"
+    print(f"{what} training on {card}: {gps:.1f} graphs/s trained "
           f"(one epoch of 8 steps, collation included)")
     print(f"one 128-graph training step (median of {reps}): host "
           f"collation {med['collation']:.3f} ms, copy to the card "
@@ -914,7 +1113,7 @@ def k4_terms(role, ops, tuv, rows, M, gZ, goZ):
 
     from pygho_tpu_torch.kernels import segment_attention as k4
 
-    a1, a3, aA, a2 = ops
+    a1, a3, aA, a2 = (x.float() for x in ops)
     if role is k4.FWD:
         out_abs, den, M = k4.attention_plain(k4.FWD, a1, a3.abs(), aA, a2,
                                              tuv, rows)
@@ -936,16 +1135,18 @@ def k4_terms(role, ops, tuv, rows, M, gZ, goZ):
     return (ssum(ads * a1[c].abs() * a2[a].abs()),)
 
 
-def k4_bound(role, tuv, rowptr, D):
+def k4_bound(role, tuv, rowptr, D, dtype=None, exact=True):
     """The least time of one K4 role on the card: every referenced row of
     each operand it reads once (forward: a2 by t, a1 and a3 by u, aA by v;
     dw: a2, M, gZ, goZ by t, a1 and a3 by u, aA by v; dc: a1 and a3 by t,
     a2, M, gZ, goZ by u, aA by v; dv: aA by t, a1 and a3 by u, a2, M, gZ,
-    goZ by v), its index arrays and row pointer once, and every output
-    written once, against its f32 operations (an exp counted as one):
-    per triple and channel 8 in the forward (and a division per output),
-    10 in dw and dv, 12 in dc.  Returns (ms, "bytes" or "operations",
-    bytes, operations)."""
+    goZ by v), a1, a3, aA and a2 at the bytes of ``dtype`` (f32 unless
+    given) and M, gZ, goZ in f32, its index arrays and row pointer once,
+    and every f32 output written once, against its f32 operations (an exp
+    counted as one): per triple and channel 8 in the forward (and a
+    division per output), 10 in dw and dv, 12 in dc, and in fast mode one
+    more for each rounding to bf16 of an f32 operand read and of each
+    term.  Returns (ms, "bytes" or "operations", bytes, operations)."""
     import torch
 
     from pygho_tpu_torch.kernels import segment_attention as k4
@@ -955,23 +1156,62 @@ def k4_bound(role, tuv, rowptr, D):
     t_read = int((rowptr[1:] > rowptr[:-1]).sum())
     u_read = int(torch.unique(tuv[1]).numel())
     v_read = int(torch.unique(tuv[2]).numel())
+    size = 2 if dtype == torch.bfloat16 else 4
+    # (stored rows, f32 rows) read by t, by u and by v; outputs; operations
     per_t, per_u, per_v, n_out, ops = {
-        k4.FWD: (1, 2, 1, 3, 8), k4.DW: (4, 2, 1, 1, 10),
-        k4.DC: (2, 4, 1, 2, 12), k4.DV: (1, 2, 4, 1, 10)}[role]
-    rows = t_read * per_t + u_read * per_u + v_read * per_v \
+        k4.FWD: ((1, 0), (2, 0), (1, 0), 3, 8),
+        k4.DW: ((1, 3), (2, 0), (1, 0), 1, 10),
+        k4.DC: ((2, 0), (1, 3), (1, 0), 2, 12),
+        k4.DV: ((1, 0), (2, 0), (1, 3), 1, 10)}[role]
+    stored = t_read * per_t[0] + u_read * per_u[0] + v_read * per_v[0]
+    f32_rows = t_read * per_t[1] + u_read * per_u[1] + v_read * per_v[1] \
         + out_rows * n_out
-    nbytes = rows * D * 4 + k * 2 * 4 + (out_rows + 1) * 4
+    nbytes = (stored * size + f32_rows * 4) * D + k * 2 * 4 \
+        + (out_rows + 1) * 4
+    # fast mode: (stored operands, f32 operands rounded, terms) a triple
+    reads = {k4.FWD: (4, 0, 2), k4.DW: (4, 2, 1), k4.DC: (4, 2, 2),
+             k4.DV: (4, 2, 1)}[role]
+    ops = rounded_ops(reads, dtype, exact, base=ops)
     flops = ops * k * D + (out_rows * D if role is k4.FWD else 0)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def check_k4(datas, dev, rng, flush):
-    """K4's four roles at the NGAT path's shapes and on edge cases, against
-    their plain version on the card, and ``SegmentAttention``'s gradients
-    against autograd through the plain forward.  Returns the roles' lines
-    of the report."""
+def k4_grad_scales(ops, t, nt, ne, W):
+    """The scale of each gradient of ``SegmentAttention`` for cotangent W,
+    from the exact-mode values: each gradient's sum over its triples of
+    |terms|, with |ds| taken as e |gZ| (|a3| + S) where S is the row's sum
+    of alpha |a3|, which covers the cancellation in out and in
+    a3 gZ - goZ.  Returns {grad name: scale}."""
+    import torch
+
+    from pygho_tpu_torch.kernels import segment_attention as k4
+
+    a1, a3, aA, a2 = (x.float() for x in ops)
+    a, c, d = t["acd"].long()
+    out, den, M = k4.attention_plain(k4.FWD, a1, a3, aA, a2, t["acd"], nt)
+    S = k4.attention_plain(k4.FWD, a1, a3.abs(), aA, a2, t["acd"], nt)[0]
+    gZ, _ = k4.softmax_cotangents(W, out, den)
+    e = torch.exp((a1[c] * aA[d]) * a2[a] - M[a])
+    ads = e * gZ[a].abs() * (a3[c].abs() + S[a])
+
+    def ssum(x, i, n):
+        return torch.zeros(n, x.shape[1], device=x.device).index_add_(0, i, x)
+
+    return {"grad_a1": ssum(ads * aA[d].abs() * a2[a].abs(), c, nt),
+            "grad_a3": ssum(e * gZ[a].abs(), c, nt),
+            "grad_aA": ssum(ads * a1[c].abs() * a2[a].abs(), d, ne),
+            "grad_a2": ssum(ads * a1[c].abs() * aA[d].abs(), a, nt)}
+
+
+def check_k4(datas, dev, rng, flush, dtype=None, exact=True):
+    """K4's four roles, in the variant of a1, a3, aA and a2 stored as
+    ``dtype`` (f32 unless given) in the math mode ``exact``, at the NGAT
+    path's shapes and on edge cases, against their plain version on the
+    card, and ``SegmentAttention``'s gradients against autograd through
+    the plain forward; for a fast or bf16 variant also a refused launch.
+    Returns the roles' lines of the report."""
     import numpy as np
     import torch
 
@@ -979,6 +1219,8 @@ def check_k4(datas, dev, rng, flush):
                                                backward_orders, row_pointer)
     from pygho_tpu_torch.kernels import segment_attention as k4
 
+    dtype = dtype or torch.float32
+    variant = {r: r.variant(dtype, exact) for r in k4.ROLES}
     batch = next(iter(SpDataloader(datas, 128, [KEY], backward=True)))
     nt, ne = batch["tupleid"].shape[1], batch["edge_index"].shape[1]
     n_t, n_e = int(batch["num_tuples"]), int(batch["num_edges"])
@@ -993,7 +1235,7 @@ def check_k4(datas, dev, rng, flush):
         """M from the plain forward, and gZ, goZ for the cotangent g, as
         ``SegmentAttention.backward`` forms them."""
         out, den, M = k4.attention_plain(k4.FWD, *ops, tuv,
-                                         rowptr.shape[0] - 1)
+                                         rowptr.shape[0] - 1, exact=exact)
         return (M, *k4.softmax_cotangents(g, out, den))
 
     def compare(role, ops, tuv, rowptr, M=None, gZ=None, goZ=None):
@@ -1003,36 +1245,36 @@ def check_k4(datas, dev, rng, flush):
         version's (the same rounded steps, each row summed in triple
         order)."""
         rows = rowptr.shape[0] - 1
-        got = k4.attend(role, *ops, tuv, rowptr, M, gZ, goZ)
-        ref = k4.attention_plain(role, *ops, tuv, rows, M, gZ, goZ)
+        got = k4.attend(role, *ops, tuv, rowptr, M, gZ, goZ, exact)
+        ref = k4.attention_plain(role, *ops, tuv, rows, M, gZ, goZ, exact)
         mags = k4_terms(role, ops, tuv, rows, M, gZ, goZ)
         sync()
         err = ratio = 0.0
         for x, r, mag in zip(got, ref, mags):
             if not bool(torch.isfinite(x).all()):
-                raise AssertionError(f"{role.NAME} gave a value that is "
-                                     f"not finite")
+                raise AssertionError(f"{variant[role].NAME} gave a value "
+                                     f"that is not finite")
             if x.numel() == 0:
                 continue
             if not torch.equal(x, r):
-                raise AssertionError(f"{role.NAME} is not bit for bit equal "
-                                     f"to its plain version")
+                raise AssertionError(f"{variant[role].NAME} is not bit for "
+                                     f"bit equal to its plain version")
             diff = (x - r).abs()
             err = max(err, float(diff.max()))
             ratio = max(ratio, float(
                 (diff / (ATT_RTOL * mag).clamp_min(1e-30)).max()))
         return err, ratio
 
-    def held(what, err, ratio, bitwise=False):
+    def held(what, err, ratio, bitwise=False, rtol=ATT_RTOL):
         print(f"{what}: {'bit for bit equal, ' if bitwise else ''}max abs "
-              f"err {err:.3e}, {ratio:.3f} of the tolerance {ATT_RTOL:g} * "
+              f"err {err:.3e}, {ratio:.3f} of the tolerance {rtol:g} * "
               f"sum |terms|")
         if not ratio <= 1.0:
             raise AssertionError(f"{what} disagrees with the plain version: "
                                  f"{err}")
 
-    ops = (operand(nt, n_t), operand(nt, n_t), operand(ne, n_e),
-           operand(nt, n_t))
+    ops = tuple(x.to(dtype) for x in (operand(nt, n_t), operand(nt, n_t),
+                                      operand(ne, n_e), operand(nt, n_t)))
     t = {name: torch.from_numpy(batch[f"{KEY}___{name}"]).to(dev)
          for name in ("acd", "rowptr", "acd_dx", "rowptr_dx", "acd_da",
                       "rowptr_da")}
@@ -1044,16 +1286,16 @@ def check_k4(datas, dev, rng, flush):
     errs = {}
     for role, args in main.items():
         errs[role], ratio = compare(role, ops, *args)
-        held(f"{role.NAME} main shape: {args[0].shape[1]} triples, a1 "
-             f"{tuple(ops[0].shape)}, aA {tuple(ops[2].shape)}, out rows "
+        held(f"{variant[role].NAME} main shape: {args[0].shape[1]} triples, "
+             f"a1 {tuple(ops[0].shape)}, aA {tuple(ops[2].shape)}, out rows "
              f"{args[1].shape[0] - 1}", errs[role], ratio, True)
 
     # edge cases, for every role: empty rows, a row of one triple and one
     # of 2,000 (its backward orders spread it over many rows); D = 13 and
-    # an a1 one float off 16-byte alignment (both take the scalar loop);
-    # scores scaled 3x, where the TPU kernel's bound shift flushes; and
-    # short rows with a run of 130 empty rows mid-array, rows of 9, 33 and
-    # 120 triples over several chunks (the forward walks them twice) and 5
+    # an a1 one value off alignment (both take the scalar loop); scores
+    # scaled 3x, where the TPU kernel's bound shift flushes; and short rows
+    # with a run of 130 empty rows mid-array, rows of 9, 33 and 120
+    # triples over several chunks (the forward walks them twice) and 5
     # triples past a multiple of 32 (every chunk size)
     x_rows, e_rows = 600, 400
     rows = np.concatenate([np.full(2000, 5), rng.integers(0, 590, 3000),
@@ -1068,8 +1310,7 @@ def check_k4(datas, dev, rng, flush):
             ("empty rows, one-triple and 2,000-triple rows, D=128", heavy,
              128, 1.0, False),
             ("D=13 (scalar loop)", heavy, 13, 1.0, False),
-            ("a1 off 16-byte alignment (scalar loop)", heavy, 128, 1.0,
-             True),
+            ("a1 off alignment (scalar loop)", heavy, 128, 1.0, True),
             ("scores scaled 3x", heavy, 128, 3.0, False),
             ("short rows, 130 empty rows mid-array, rows over several "
              "chunks, k = 5 mod 32, D=128", runs, 128, 1.0, False)):
@@ -1080,10 +1321,10 @@ def check_k4(datas, dev, rng, flush):
         e_acd = torch.from_numpy(acd.astype(np.int32)).to(dev)
         e_rp = torch.from_numpy(row_pointer(a, x_rows)).to(dev)
         eops = [torch.from_numpy((scale * rng.normal(size=(n, Dc)))
-                                 .astype(np.float32)).to(dev)
+                                 .astype(np.float32)).to(dev).to(dtype)
                 for n in (x_rows, x_rows, e_rows, x_rows)]
         if misalign:
-            flat = torch.empty(x_rows * Dc + 1, device=dev)[1:]
+            flat = torch.empty(x_rows * Dc + 1, device=dev, dtype=dtype)[1:]
             eops[0] = flat.view(x_rows, Dc).copy_(eops[0])
         g = torch.from_numpy(rng.normal(size=(x_rows, Dc))
                              .astype(np.float32)).to(dev)
@@ -1092,15 +1333,16 @@ def check_k4(datas, dev, rng, flush):
                  k4.DC: (*orders["dx"], *egrads),
                  k4.DV: (*orders["da"], *egrads)}
         for role, args in cases.items():
-            held(f"{role.NAME} edge case {name}",
+            held(f"{variant[role].NAME} edge case {name}",
                  *compare(role, eops, *args), True)
         if scale != 1.0:
             # where the TPU kernel's shift |a2[a]| max|a1| max|aA| lies
             # more than 60 nats above the row's maximum, its denominator
             # falls under its floor and the entry comes out 0
             M = egrads[0]
-            over = eops[3].abs() * (eops[0].abs().amax(0)
-                                    * eops[2].abs().amax(0)) - M
+            f = [x.float() for x in eops]
+            over = f[3].abs() * (f[0].abs().amax(0)
+                                 * f[2].abs().amax(0)) - M
             live = (e_rp[1:] > e_rp[:-1])[:, None].expand_as(M)
             print(f"  scaled 3x: {int((over[live] > 60).sum())} of "
                   f"{int(live.sum())} live (row, channel) entries lie more "
@@ -1108,43 +1350,73 @@ def check_k4(datas, dev, rng, flush):
                   f"output here is finite")
 
     # SegmentAttention's gradients on the card against autograd through the
-    # plain forward, for a random cotangent W
+    # plain forward, for a random cotangent W.  Exact f32: the same rounded
+    # steps, ATT_RTOL of k4_terms.  Fast or bf16: the kernel rounds gZ, goZ
+    # and each term (fast) and stores the gradients in bf16 (bf16
+    # operands), where autograd through the plain forward rounds the
+    # cotangent of each rounded message and of each operand instead:
+    # about eight roundings of at most 2^-8 between the two, 2^-5 of the
+    # scale (k4_grad_scales, from the exact-mode values):
+    # K4_FAST_GRAD_RTOL
     W = operand(nt, n_t)
     bwd = (t["acd_dx"], t["rowptr_dx"], t["acd_da"], t["rowptr_da"])
     ks = [x.clone().requires_grad_() for x in ops]
-    (k4.SegmentAttention.apply(*ks, t["acd"], t["rowptr"], bwd) * W) \
-        .sum().backward()
+    (k4.SegmentAttention.apply(*ks, t["acd"], t["rowptr"], bwd, exact)
+     * W).sum().backward()
     ps = [x.clone().requires_grad_() for x in ops]
-    (k4.attention_plain(k4.FWD, *ps, t["acd"], nt)[0] * W).sum().backward()
+    (k4.attention_plain(k4.FWD, *ps, t["acd"], nt, exact=exact)[0] * W) \
+        .sum().backward()
     with torch.no_grad():
-        wgrads = grad_inputs(ops, t["acd"], t["rowptr"], W)
-        dc = k4_terms(k4.DC, ops, t["acd_dx"], nt, *wgrads)
-        mags = {"grad_a1": dc[0], "grad_a3": dc[1],
-                "grad_aA": k4_terms(k4.DV, ops, t["acd_da"], ne, *wgrads)[0],
-                "grad_a2": k4_terms(k4.DW, ops, t["acd"], nt, *wgrads)[0]}
+        if dtype == torch.float32 and exact:
+            wgrads = grad_inputs(ops, t["acd"], t["rowptr"], W)
+            dc = k4_terms(k4.DC, ops, t["acd_dx"], nt, *wgrads)
+            mags = {"grad_a1": dc[0], "grad_a3": dc[1],
+                    "grad_aA": k4_terms(k4.DV, ops, t["acd_da"], ne,
+                                        *wgrads)[0],
+                    "grad_a2": k4_terms(k4.DW, ops, t["acd"], nt,
+                                        *wgrads)[0]}
+            rtol = ATT_RTOL
+        else:
+            mags = k4_grad_scales(ops, t, nt, ne, W)
+            rtol = K4_FAST_GRAD_RTOL
     for (what, mag), got, ref in zip(mags.items(), ks, ps):
-        diff = (got.grad - ref.grad).abs()
-        held(f"SegmentAttention {what} vs autograd through the plain "
-             f"forward", float(diff.max()),
-             float((diff / (ATT_RTOL * mag).clamp_min(1e-30)).max()))
-    del ks, ps, W, mags, dc
+        if got.grad.dtype != ref.grad.dtype:
+            raise AssertionError(f"SegmentAttention {what} is "
+                                 f"{got.grad.dtype}")
+        diff = (got.grad.float() - ref.grad.float()).abs()
+        held(f"SegmentAttention ({mode_name(dtype, exact)}) {what} vs "
+             f"autograd through the plain forward", float(diff.max()),
+             float((diff / (rtol * mag).clamp_min(1e-30)).max()),
+             rtol=rtol)
+    del ks, ps, W, mags
+
+    if dev.type == "cuda" and not (dtype == torch.float32 and exact):
+        for role, args in main.items():
+            check_launch_failure(
+                variant[role],
+                lambda: k4.attend(role, *ops, *args, exact=exact))
 
     report = []
     for role, args in main.items():
+        name = variant[role].NAME
         tuv, rowptr = args[0], args[1]
-        ms = time_ms(lambda: k4.attend(role, *ops, *args), flush)
+        ms = time_ms(lambda: k4.attend(role, *ops, *args, exact=exact),
+                     flush)
         plain_ms = time_ms(lambda: k4.attention_plain(
-            role, *ops, tuv, rowptr.shape[0] - 1, *args[2:]), flush)
-        warm_ms = time_ms(lambda: k4.attend(role, *ops, *args),
+            role, *ops, tuv, rowptr.shape[0] - 1, *args[2:], exact=exact),
+            flush)
+        warm_ms = time_ms(lambda: k4.attend(role, *ops, *args, exact=exact),
                           lambda: torch.cuda._sleep(1_000_000))
-        bound_ms, bound_by, nbytes, flops = k4_bound(role, tuv, rowptr, D)
-        print(f"{role.NAME} timing (L2 flushed before each launch, median "
+        bound_ms, bound_by, nbytes, flops = k4_bound(role, tuv, rowptr, D,
+                                                     dtype, exact)
+        print(f"{name} timing (L2 flushed before each launch, median "
               f"of 30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
               f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, {flops} f32 "
               f"operations at 67 TFLOP/s); kernel with its inputs left in "
               f"L2 {warm_ms:.4f} ms")
-        report.append({"name": role.NAME, "route": "cuda",
-                       "source": role.SOURCE, "replaces": role.REPLACES,
+        report.append({"name": name, "route": "cuda",
+                       "source": variant[role].SOURCE,
+                       "replaces": variant[role].REPLACES,
                        "launches": None, "max_abs_err": errs[role],
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": None})
@@ -1694,6 +1966,11 @@ def main():
     report += check_k5([dense_pre(g) for g in graphs], dev, rng,
                        flush_buf.zero_)
     report += check_k4(datas, dev, rng, flush_buf.zero_)
+    # the fast and bf16 variants of K1 and K4
+    for name, exact in FAST_VARIANTS:
+        dtype = torch.bfloat16 if name == "bf16" else None
+        report += check_k1(datas, dev, rng, flush_buf.zero_, dtype, exact)
+        report += check_k4(datas, dev, rng, flush_buf.zero_, dtype, exact)
     t1 = time.perf_counter()
     giant = giant_instance()
     print(f"giant graph built in {time.perf_counter() - t1:.3f} s on the "
@@ -1738,18 +2015,43 @@ def main():
     giant_launches = train_giant(card, dev, giant)
     done("giant training", t0)
 
+    t0 = phase("NGNN fast serving")
+    with math_mode(False):
+        raw_gps, pre_gps, fast_launches = serve(graphs, rng, dev)
+    print(f"NGNN-SS 6x128 (f32fast) serving on {card}: {raw_gps:.1f} "
+          f"graphs/s from raw graphs (host precompute included), "
+          f"{pre_gps:.1f} graphs/s from preprocessed graphs")
+    done("NGNN fast serving", t0)
+
+    t0 = phase("NGNN fast training")
+    with math_mode(False):
+        fast_train_launches = training(card, dev)
+    done("NGNN fast training", t0)
+
+    t0 = phase("NGNN bf16 training")
+    with math_mode(False):
+        bf16_train_launches = training(card, dev, dtype=torch.bfloat16)
+    done("NGNN bf16 training", t0)
+
+    t0 = phase("NGAT fast training")
+    with math_mode(False):
+        ngat_fast_launches = training(card, dev, "NGAT")
+    done("NGAT fast training", t0)
+
     # launches: each main path's run (NGNN serving and training, dense
     # serving and training, NGAT serving and training, giant-graph
-    # training), each counted from 0 just before the path and read just
-    # after
+    # training, and the fast and bf16 runs), each counted from 0 just
+    # before the path and read just after
+    runs = (launches, train_launches, dense_launches, dense_train_launches,
+            ngat_launches, ngat_train_launches, giant_launches,
+            fast_launches, fast_train_launches, bf16_train_launches,
+            ngat_fast_launches)
     for line in report:
-        line["launches"] = sum(
-            run[line["name"]] for run in (launches, train_launches,
-                                          dense_launches,
-                                          dense_train_launches,
-                                          ngat_launches,
-                                          ngat_train_launches,
-                                          giant_launches))
+        line["launches"] = sum(run[line["name"]] for run in runs)
+    unlaunched = [line["name"] for line in report if not line["launches"]
+                  and line["name"] not in UNLAUNCHED]
+    if unlaunched:
+        raise AssertionError(f"kernels no main path launched: {unlaunched}")
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": report}))

@@ -1,12 +1,14 @@
 """Minimal end-to-end NGNN on a ZINC-style dataset with the PyTorch / CUDA
 port (``pygho_tpu_torch``): the workload of ``example/minimal_tpu.py``.
 
-Run: python example/minimal_gpu.py [--cpu] [--epochs N]
+Run: python example/minimal_gpu.py [--cpu] [--epochs N] [--fused]
 
 It trains on the CUDA card unless ``--cpu`` is given; with no card and no
-``--cpu`` it raises.  Preprocessing runs in this process.  Each epoch
-prints one JSON line with the fields of the JAX package's
-``MetricsLogger.log_epoch``.
+``--cpu`` it raises.  ``--fused`` trains in the fast numerics mode of the
+JAX script's ``--fused`` (``set_fused_math(False)``: bf16 fast math in the
+message-passing kernel, K1's ``*_f32fast`` variants on the card).
+Preprocessing runs in this process.  Each epoch prints one JSON line with
+the fields of the JAX package's ``MetricsLogger.log_epoch``.
 """
 
 import argparse
@@ -26,6 +28,9 @@ parser.add_argument("--hiddim", type=int, default=128)
 parser.add_argument("--num_layer", type=int, default=6)
 parser.add_argument("--bs", type=int, default=128)
 parser.add_argument("--hop", type=int, default=3)
+parser.add_argument("--fused", action="store_true",
+                    help="route message passing through the fast variants "
+                         "of the message-passing kernel (bf16 fast math)")
 args = parser.parse_args()
 
 import torch
@@ -33,10 +38,13 @@ import torch
 from pygho_tpu_torch.hodata import (KhopSampler, SpDataloader,
                                     Sppretransform, synthetic_zinc)
 from pygho_tpu_torch.honn import parse_precomputekey
+from pygho_tpu_torch.kernels import set_fused_math
 from pygho_tpu_torch.models import (make_optimizer, make_sp_model,
                                     make_sparse_steps)
 
 device = "cpu" if args.cpu else None     # None: the card, or raise
+if args.fused:
+    set_fused_math(False)   # bf16 fast math in the message-passing kernel
 
 # 1. model (reference example/minimal.py:92-98)
 mlpdict = {"norm": "bn", "act": "silu", "dp": 0.0}

@@ -3,7 +3,10 @@
 
 Semantics kept from the JAX package:
 
-- segments that receive no contribution yield 0, for every ``aggr``;
+- segments that receive no contribution yield 0, for every ``aggr``; so
+  does a maximum of ``-inf`` and a minimum of ``+inf`` (a segment whose
+  entries in a channel are all ``-inf`` or all ``+inf``), and the segment
+  softmax shifts such a segment by 0;
 - segment ids outside ``[0, num_segments)`` (the ``PAD_INDEX`` padding
   convention) are dropped.
 
@@ -47,8 +50,9 @@ def segment_reduce(src: torch.Tensor, seg_ids: torch.Tensor,
         # include_self=False: a segment with no contribution keeps its 0
         idx = ids.reshape((-1,) + (1,) * (src.dim() - 1)).expand_as(src)
         out = out.scatter_reduce(0, idx, src, "a" + aggr,
-                                 include_self=False)
-        return out[:num_segments]
+                                 include_self=False)[:num_segments]
+        inf = out.isneginf() if aggr == "max" else out.isposinf()
+        return torch.where(inf, 0.0, out)
     out.index_add_(0, ids, src)
     out = out[:num_segments]
     if aggr == "mean":
@@ -76,6 +80,7 @@ def segment_softmax(src: torch.Tensor, seg_ids: torch.Tensor,
         m = src.detach().amax(dim=0, keepdim=True)
         e = torch.exp(src - torch.where(torch.isfinite(m), m, 0.0))
     elif stable == "segment":
+        # segment_reduce's maximum is already 0 where it would be -inf
         m = segment_reduce(src, seg_ids, num_segments, "max")
         e = torch.exp(src - m[_clamped(seg_ids, num_segments)])
     else:

@@ -8,7 +8,9 @@ onto the target pattern ``tarX``.  The hot loop is the K1 kernel
 ``SpspmmSum``, so a gradient flows through the kernel's dX and dA roles
 on every device.  It needs the triples with the padding stripped and their
 row pointer, and for a backward the triples in the backward roles' orders,
-all of which the loader builds on the host.
+all of which the loader builds on the host.  It runs in the math mode of
+``kernels.set_fused_math`` and returns values in ``A``'s dtype, as the
+JAX operator casts the kernel's f32 result (``honn/sp_operator.py:126``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ..kernels.numerics import get_fused_math
 from ..kernels.spspmm_sum import BackwardOrders, SpspmmSum
 from .sptensor import SparseTensor
 
@@ -47,7 +50,8 @@ def spspmm(A: SparseTensor, dim1: int, B: SparseTensor, dim2: int,
     if rowptr.shape[0] != tarX.nnz_pad + 1:
         raise ValueError(f"rowptr spans {rowptr.shape[0] - 1} rows, tarX "
                          f"has {tarX.nnz_pad}")
-    vals = SpspmmSum.apply(A.values, B.values, acd, rowptr, bwd)
+    vals = SpspmmSum.apply(A.values, B.values, acd, rowptr, bwd,
+                           get_fused_math()).to(A.values.dtype)
     keep_shape = (tuple(A.sparse_shape[:dim1])
                   + tuple(A.sparse_shape[dim1 + 1:])
                   + tuple(B.sparse_shape[:dim2])

@@ -21,8 +21,17 @@
 //   warps and every row is written by exactly one warp: the caller
 //   allocates the outputs with torch.empty.  Those warps come after the
 //   chunk warps in the grid;
-// - the feature dim lies across the lanes, N floats a lane (a float4
-//   where D % 4 == 0 and every pointer is 16-byte aligned, else one);
+// - the feature dim lies across the lanes, N values a lane (four where
+//   D % 4 == 0 and every pointer is aligned to four values, else one).
+//   Operands are stored as f32 or bf16 (T): four f32 values are one
+//   16-byte load, four bf16 values one 8-byte load; every sum and every
+//   output is f32.  A group's gathers are loaded as they are stored (Raw,
+//   load_raw) and widened to f32 (widen) only in the loop that uses them,
+//   so a warp issues all the group's loads before it waits for the first:
+//   widening each as it arrived made each load wait for the one before.
+//   In fast mode (the JAX package's exact=False) an operand is rounded to
+//   bf16 as it is widened and each term once more before it is added
+//   (term);
 // - stream_walk, for roles that sum one term a triple: the warp issues the
 //   gathers of F triples into registers before their adds, so F triples'
 //   rows are in flight where a warp a row had its row's two, and loads a
@@ -34,15 +43,19 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace chunk_walk {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kZeroRows = 32;  // output rows of one zeroing warp
 
-// N floats of one lane: a float4 (N = 4) or one float (N = 1)
+// N values of one lane, in f32: four (N = 4) or one (N = 1)
 template <int N>
 struct Vec {
   float x[N];
@@ -56,21 +69,105 @@ __device__ __forceinline__ Vec<N> filled(float f) {
   return r;
 }
 
-template <int N>
-__device__ __forceinline__ Vec<N> load(const float* __restrict__ p,
-                                       int64_t off) {
-  Vec<N> r;
-  if constexpr (N == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p + off));
-    r.x[0] = q.x;
-    r.x[1] = q.y;
-    r.x[2] = q.z;
-    r.x[3] = q.w;
+// two bf16 values packed in one 32-bit word (the first in the low half, as
+// they lie in memory), widened to f32
+__device__ __forceinline__ float2 widen2(unsigned w) {
+  __nv_bfloat162 h;
+  memcpy(&h, &w, sizeof h);
+  return __bfloat1622float2(h);
+}
+
+// N values of one lane as they are stored, before they are widened: f32
+// values as they are, bf16 values as their bits (four in one 8-byte word)
+template <int N, typename T>
+struct Raw {
+  float x[N];
+};
+template <>
+struct Raw<4, __nv_bfloat16> {
+  uint2 q;
+};
+template <>
+struct Raw<1, __nv_bfloat16> {
+  unsigned short h;
+};
+
+// N values of one lane from a row of T (float or __nv_bfloat16): four f32
+// as one 16-byte load, four bf16 as one 8-byte load (the caller checks the
+// alignment of each), else one value
+template <int N, typename T>
+__device__ __forceinline__ Raw<N, T> load_raw(const T* __restrict__ p,
+                                              int64_t off) {
+  static_assert(std::is_same<T, float>::value ||
+                    std::is_same<T, __nv_bfloat16>::value,
+                "operands are f32 or bf16");
+  static_assert(N == 1 || N == 4, "one or four values a lane");
+  Raw<N, T> r;
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (N == 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p + off));
+      r.x[0] = q.x;
+      r.x[1] = q.y;
+      r.x[2] = q.z;
+      r.x[3] = q.w;
+    } else {
+      r.x[0] = __ldg(p + off);
+    }
+  } else if constexpr (N == 4) {
+    r.q = __ldg(reinterpret_cast<const uint2*>(p + off));
   } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) r.x[i] = __ldg(p + off + i);
+    r.h = __ldg(reinterpret_cast<const unsigned short*>(p) + off);
   }
   return r;
+}
+
+// zeros, in the stored form (the bits of 0 are 0 in both types)
+template <int N, typename T>
+__device__ __forceinline__ Raw<N, T> zero_raw() {
+  return Raw<N, T>{};
+}
+
+// x rounded to the nearest bf16, ties to even, kept as f32: the rounding
+// of astype(jnp.bfloat16) and of Tensor.to(torch.bfloat16)
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Stored values as the math reads them: widened to f32 and, in fast mode,
+// rounded to bf16 (nothing to round in a bf16 row)
+template <int N, bool FAST, typename T>
+__device__ __forceinline__ Vec<N> widen(const Raw<N, T>& r) {
+  Vec<N> v;
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v.x[i] = FAST ? round_bf16(r.x[i]) : r.x[i];
+  } else if constexpr (N == 4) {
+    const float2 lo = widen2(r.q.x), hi = widen2(r.q.y);
+    v.x[0] = lo.x;
+    v.x[1] = lo.y;
+    v.x[2] = hi.x;
+    v.x[3] = hi.y;
+  } else {
+    v.x[0] = __bfloat162float(__ushort_as_bfloat16(r.h));
+  }
+  return v;
+}
+
+// A term of a sum: rounded to bf16 in fast mode, as it is
+template <bool FAST>
+__device__ __forceinline__ float term(float x) {
+  if constexpr (FAST) {
+    return round_bf16(x);
+  } else {
+    return x;
+  }
+}
+
+// Where N = 4 values a lane may be loaded at once from p: aligned to four
+// values of T
+template <typename T>
+inline bool aligned4(const T* p) {
+  return (reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T))) == 0;
 }
 
 template <int N>
@@ -157,7 +254,7 @@ __device__ __forceinline__ void zero_rows(float* const (&outs)[kOuts],
 //   op.own(t, col), op.gather(u, v, col), Op::zero(),
 //   op.add(acc, own, gat), op.store(t, col, acc)
 //
-// col is this lane's first float in a row.  The triples go in groups of F
+// col is this lane's first value in a row.  The triples go in groups of F
 // (fewer at the end of the 32 triples in the lanes): the group's gathers,
 // and the own operands of the rows that start in it, are issued before the
 // first add.  Past the first 32 triples all belong to the last row, whose

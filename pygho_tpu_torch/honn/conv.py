@@ -11,7 +11,9 @@ from torch import nn
 
 from ..backend.matensor import MaskedTensor
 from ..backend.sptensor import SparseTensor
+from ..kernels.numerics import get_fused_math
 from ..kernels.segment_attention import SegmentAttention
+from ..kernels.spspmm_sum import to_bf16
 from . import tensorop as TensorOp
 from .sp_operator import OpMessagePassing, _fetch, fetch_backward_orders
 from .utils import MLP, make_linear
@@ -78,7 +80,15 @@ class NGATConv(nn.Module):
     score -> softmax -> aggregate chain is K4
     (``kernels/segment_attention.py``), whose softmax takes each row's
     exact maximum as its shift.  Only ``aggr="sum"``, the "SS" mode and an
-    adjacency with edge values are ported."""
+    adjacency with edge values are ported.
+
+    The projections and K4 run in f32 whatever the MLP's compute dtype (the
+    JAX layer's f32 kernels promote a bf16 input), and the result comes
+    back in ``X``'s dtype.  In fast mode (``set_fused_math(False)``) K4
+    runs its fast variants and, on the card, the projections take bf16
+    inputs to f32 products and sums (:func:`fast_projection`), as the JAX
+    layer's ``_att_proj`` does on its accelerator; on the CPU they stay
+    f32, as the JAX layer's do on the CPU."""
 
     def __init__(self, indim: int, outdim: int, aggr: str = "sum",
                  mode: str = "SS", mlp: dict = {}, optuplefeat: str = "X",
@@ -109,10 +119,24 @@ class NGATConv(nn.Module):
         tX = _apply(X, self.lin)
         key = self.keyop.precomputekey
         xv = tX.values
+        exact = get_fused_math()
+        proj = fast_projection if not exact and xv.is_cuda \
+            else (lambda lin, x: lin(x))
         out = SegmentAttention.apply(
-            self.att1(xv), self.att3(xv), self.attA(A.values),
-            self.att2(xv), _fetch(datadict, key, "acd"),
-            _fetch(datadict, key, "rowptr"),
-            fetch_backward_orders(datadict, key))
-        return SparseTensor(indices=tX.indices, values=out, nnz=tX.nnz,
-                            sparse_shape=tX.sparse_shape)
+            proj(self.att1, xv), proj(self.att3, xv),
+            proj(self.attA, A.values), proj(self.att2, xv),
+            _fetch(datadict, key, "acd"), _fetch(datadict, key, "rowptr"),
+            fetch_backward_orders(datadict, key), exact)
+        return SparseTensor(indices=tX.indices, values=out.to(xv.dtype),
+                            nnz=tX.nnz, sparse_shape=tX.sparse_shape)
+
+
+def fast_projection(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin(x)`` from bf16 inputs: ``x`` and the weight rounded to bf16,
+    their products formed and summed in f32 (TF32 off) and the f32 bias
+    added, as ``jnp.dot(x.astype(bf16), W.astype(bf16),
+    preferred_element_type=f32) + b`` computes (NGAT's projections under
+    fast math).  The products of two bf16 values are exact in f32, so this
+    is the bf16 product with an f32 result up to the order of the sum."""
+    return torch.nn.functional.linear(to_bf16(x), to_bf16(lin.weight),
+                                      lin.bias)

@@ -5,6 +5,9 @@ Value arrays are padded, so the norm's statistics in training mode are
 taken over the real rows only (``mask``); in eval mode it uses its running
 statistics.  Weights are initialised from an explicit ``torch.Generator``
 with the JAX package's initialisers (LeCun-normal kernels, zero biases).
+An MLP may compute in another dtype than its f32 parameters (bf16 for
+mixed precision), as the JAX package's ``MLP(dtype=...)`` does; its norms
+keep their statistics in f32.
 """
 
 from __future__ import annotations
@@ -17,12 +20,35 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def make_linear(indim: int, outdim: int, *,
-                generator: torch.Generator) -> nn.Linear:
+class Linear(nn.Linear):
+    """``nn.Linear`` with the compute dtype of ``flax.nnx.Linear``.
+
+    Without ``compute_dtype`` the input is promoted to the parameters'
+    dtype (f32) and the product is PyTorch's.  With it (bf16 over f32
+    parameters), the input, the weight and the bias are cast to it, the
+    product comes out in it (summed in f32 and rounded once), and the bias
+    is added in it, as ``nnx.Linear(dtype=...)`` computes."""
+
+    def __init__(self, indim: int, outdim: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(indim, outdim)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(
+                x.to(torch.promote_types(x.dtype, self.weight.dtype)))
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+def make_linear(indim: int, outdim: int, *, generator: torch.Generator,
+                dtype: Optional[torch.dtype] = None) -> Linear:
     """Linear layer with a LeCun-normal weight (a normal truncated at two
     standard deviations, rescaled to variance 1 / fan_in, as
-    ``jax.nn.initializers.lecun_normal``) and a zero bias."""
-    lin = nn.Linear(indim, outdim)
+    ``jax.nn.initializers.lecun_normal``) and a zero bias, f32, computing
+    in ``dtype`` (:class:`Linear`)."""
+    lin = Linear(indim, outdim, dtype)
     std = math.sqrt(1.0 / indim) / .87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std,
@@ -96,12 +122,15 @@ class MLP(nn.Module):
 
     numlayer == 0 is the identity (requires hiddim == outdim).  Every call
     takes an optional row-validity ``mask``, forwarded to the norms.
-    Only the "bn" norm is ported, and no dropout (``dp`` must be 0).
+    ``dtype`` is the compute dtype of the linear layers (``None``: f32);
+    the parameters stay f32.  Only the "bn" norm is ported, and no
+    dropout (``dp`` must be 0).
     """
 
     def __init__(self, hiddim: int, outdim: int, numlayer: int,
                  tailact: bool, dp: float = 0.0, norm: str = "bn",
-                 act: str = "relu", normparam: float = 0.1, *,
+                 act: str = "relu", normparam: float = 0.1,
+                 dtype: Optional[torch.dtype] = None, *,
                  generator: torch.Generator):
         super().__init__()
         if numlayer < 0:
@@ -122,9 +151,11 @@ class MLP(nn.Module):
             return
         for _ in range(numlayer - 1):
             self.hid_lins.append(make_linear(hiddim, hiddim,
-                                             generator=generator))
+                                             generator=generator,
+                                             dtype=dtype))
             self.hid_norms.append(BatchNorm(hiddim, normparam))
-        self.tail_lin = make_linear(hiddim, outdim, generator=generator)
+        self.tail_lin = make_linear(hiddim, outdim, generator=generator,
+                                    dtype=dtype)
         if tailact:
             self.tail_norm = BatchNorm(outdim, normparam)
 

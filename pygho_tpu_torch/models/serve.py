@@ -3,8 +3,9 @@
 
 A predictor owns the host pipeline for inference: tuple-sampler
 precompute, bucket-padded collation with shape buckets kept across calls,
-an eval-mode forward under ``torch.inference_mode()`` in the parity mode,
-and unpadding in input order.  Host precompute runs in the calling
+an eval-mode forward under ``torch.inference_mode()`` in the parity mode
+(in whichever math mode ``kernels.set_fused_math`` set), and unpadding in
+input order.  Host precompute runs in the calling
 process (``num_workers=0``); the JAX package's process pool is not
 ported.
 """
@@ -31,9 +32,11 @@ DETERMINISTIC_CUBLAS = (":4096:8", ":16:8")
 
 
 def set_parity_numerics() -> None:
-    """The parity mode, which stands in for the JAX package's
-    ``exact=True`` and its bitwise reproducibility: f32 matrix products
-    and convolutions without TF32, and deterministic algorithms only.
+    """The parity mode, which gives the port the JAX package's bitwise
+    reproducibility in either math mode (``kernels.set_fused_math``): f32
+    matrix products and convolutions without TF32, bf16 matrix products
+    (the MLPs of a bf16 model) summed in f32 without reduced-precision
+    reductions, and deterministic algorithms only.
 
     Under ``torch.use_deterministic_algorithms(True)`` the library sums
     that use atomics on CUDA (``index_add_`` in ``segment_reduce``, the
@@ -53,6 +56,7 @@ def set_parity_numerics() -> None:
             f"needs one of {DETERMINISTIC_CUBLAS}, set before the first "
             f"CUDA call")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.use_deterministic_algorithms(True)
     torch.utils.deterministic.fill_uninitialized_memory = False

@@ -17,7 +17,9 @@ The optimizer is AdamW with optax's defaults, stepped once per batch, over
 the ``nn.Parameter``s only: BatchNorm running statistics are buffers and
 are updated by the forward, not by the optimizer.  The steps run in the
 parity mode (``serve.set_parity_numerics``): f32 without TF32, and
-deterministic, so two runs from one seed give the same bits.
+deterministic, so two runs from one seed give the same bits, in either
+math mode (``kernels.set_fused_math``; the fast mode is the JAX package's
+``--fused``).
 """
 
 from __future__ import annotations

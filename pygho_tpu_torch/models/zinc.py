@@ -1,7 +1,7 @@
 """ZINC-style HOGNN models (port of ``InputEncoderSp``, ``SpModel``,
 ``make_sp_model``, ``InputEncoderMa``, ``MaModel`` and ``make_ma_model``
-from ``pygho_tpu/models/zinc.py``; NGNN and NGAT in sparse mode and PPGN
-in dense mode, f32).
+from ``pygho_tpu/models/zinc.py``; NGNN and NGAT in sparse mode, in f32
+or with bf16 compute over f32 parameters, and PPGN in dense mode, f32).
 
 ``SpModel`` takes the datadict of ``hodata.batch_to_sparse_dict``,
 ``MaModel`` that of ``hodata.batch_to_dense_dict``; both return
@@ -11,6 +11,7 @@ package's names, so ``weights.load_jax_params`` can map one onto the other.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional
 
@@ -78,6 +79,12 @@ class SpModel(nn.Module):
     """Sparse HOGNN for graph regression (reference
     example/zinc.py:225-294).  The NGNN and NGAT convs are ported.
 
+    ``dtype`` is the compute dtype (``torch.bfloat16`` for mixed
+    precision): the MLPs and the tuple-init layers compute in it over f32
+    parameters, and :meth:`encode_init` casts the node, edge and tuple
+    features to it, as the JAX model's ``dtype`` does; the prediction comes
+    out in f32.
+
     forward(datadict) -> (num_graphs, num_tasks)
     """
 
@@ -85,12 +92,16 @@ class SpModel(nn.Module):
                  num_layer: int = 6, hiddim: int = 128, aggr: str = "sum",
                  npool: str = "sum", lpool: str = "mean",
                  residual: bool = True, outlayer: int = 2,
-                 mlp: Optional[dict] = None, *,
+                 mlp: Optional[dict] = None,
+                 dtype: Optional[torch.dtype] = None, *,
                  generator: torch.Generator):
         super().__init__()
         mlp = dict(mlp or {})
         mlp.setdefault("numlayer", 1)
         mlp.setdefault("tailact", True)
+        if dtype is not None:
+            mlp.setdefault("dtype", dtype)
+        self.dtype = dtype
         convdict = _sp_convdict(aggr, mlp, generator)
         if conv not in convdict:
             raise NotImplementedError(
@@ -102,8 +113,10 @@ class SpModel(nn.Module):
         self.residual = residual
         self.npool = npool
 
-        self.lin_tupleinit0 = make_linear(hiddim, hiddim, generator=generator)
-        self.lin_tupleinit1 = make_linear(hiddim, hiddim, generator=generator)
+        self.lin_tupleinit0 = make_linear(hiddim, hiddim, generator=generator,
+                                          dtype=dtype)
+        self.lin_tupleinit1 = make_linear(hiddim, hiddim, generator=generator,
+                                          dtype=dtype)
         self.subggnns = nn.ModuleList(
             [convdict[conv](hiddim) for _ in range(num_layer)])
         self.lpool = TensorOp.OpPoolingSubg2D("S", lpool)
@@ -124,10 +137,16 @@ class SpModel(nn.Module):
         return X.tuplewiseapply(lambda v: t0 * t1 * v)
 
     def encode_init(self, datadict: Dict):
-        """Encoder + tupleinit.  Returns (datadict, A, X)."""
+        """Encoder + cast to the compute dtype + tupleinit.  Returns
+        (datadict, A, X)."""
         datadict = self.data_encoder(datadict)
-        X = self.tupleinit(datadict["X"], datadict["x"])
-        return datadict, datadict["A"], X
+        A, X, x = datadict["A"], datadict["X"], datadict["x"]
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+            if A.values is not None:
+                A = dataclasses.replace(A, values=A.values.to(self.dtype))
+            X = dataclasses.replace(X, values=X.values.to(self.dtype))
+        return datadict, A, self.tupleinit(X, x)
 
     def readout(self, X: SparseTensor, datadict: Dict) -> torch.Tensor:
         """Subgraph pool + node MLP + graph pool + prediction head."""
@@ -149,13 +168,15 @@ class SpModel(nn.Module):
 
 
 def make_sp_model(conv: str = "NGNN", seed: int = 0,
-                  device: DeviceLike = None, **kw) -> SpModel:
+                  device: DeviceLike = None,
+                  dtype: Optional[torch.dtype] = None, **kw) -> SpModel:
     """Build an :class:`SpModel` with weights drawn from a
     ``torch.Generator`` seeded with ``seed``, on ``device`` (the CUDA card
-    unless the caller passes ``device="cpu"``)."""
+    unless the caller passes ``device="cpu"``), computing in ``dtype``
+    (``None``: f32; ``torch.bfloat16``: bf16 over f32 parameters)."""
     dev = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
-    return SpModel(conv, generator=generator, **kw).to(dev)
+    return SpModel(conv, generator=generator, dtype=dtype, **kw).to(dev)
 
 
 class InputEncoderMa(nn.Module):

@@ -1,0 +1,143 @@
+"""How far the fast numerics mode moves a training run when the f32 values
+under it change in their last bits, on the CPU with the plain versions.
+
+    python scripts/fast_mode_tolerances.py [--steps 10] [--runs NGNN-f32,...]
+
+``chip_smoke.py`` holds the card's losses against the CPU's.  In the exact
+mode the two differ by the order of f32 sums; in the fast mode a value
+that lies within those last bits of a bf16 rounding boundary rounds the
+other way on one side, and the difference grows.  This script measures
+that growth without a card: it trains each configuration twice from seed
+0 on the batches ``chip_smoke.py`` trains on, the second time with every
+BatchNorm taking its batch sums in another order, and prints the largest
+relative difference of the per-step losses.  For NGAT in fast mode the
+second run also takes the card's bf16-input projections
+(``honn.conv.fast_projection``), which the layer takes only for CUDA
+tensors.  Runs: NGNN-f32 (exact), NGNN-f32fast, NGNN-bf16fast (bf16
+compute), NGAT-f32fast; all at 6x128, batch 128.  About two minutes on
+eight cores.
+"""
+
+import argparse
+import sys
+import time
+from functools import partial
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+
+def reordered_batchnorm(module):
+    """A BatchNorm forward whose training-mode sums run over the rows in
+    reverse order: the same statistics up to the last bits."""
+    import torch
+
+    orig = module.BatchNorm.forward
+
+    def forward(self, x, mask=None):
+        if not self.training or mask is None:
+            return orig(self, x, mask)
+        in_dtype = x.dtype
+        x = x.float()
+        d = x.shape[-1]
+        rows = x.reshape(-1, d)
+        m = mask.reshape(tuple(mask.shape) + (1,) * (x.dim() - 1
+                                                      - mask.dim()))
+        m = m.expand(x.shape[:-1]).reshape(-1, 1).to(x.dtype)
+        cnt = m.sum().clamp_min(1.0)
+        mean = (rows * m).flip(0).sum(0) / cnt
+        var = (((rows - mean) ** 2) * m).flip(0).sum(0) / cnt
+        with torch.no_grad():
+            self.mean.copy_((1 - self.momentum) * self.mean
+                            + self.momentum * mean)
+            self.var.copy_((1 - self.momentum) * self.var
+                           + self.momentum * var)
+        out = (x - mean) * torch.rsqrt(var + self.eps) * self.scale \
+            + self.bias
+        return out.to(in_dtype)
+
+    return orig, forward
+
+
+def card_projections(conv_module):
+    """NGATConv.forward taking ``fast_projection`` on every device."""
+    from pygho_tpu_torch.backend.sptensor import SparseTensor
+    from pygho_tpu_torch.honn.sp_operator import (_fetch,
+                                                  fetch_backward_orders)
+    from pygho_tpu_torch.kernels.segment_attention import SegmentAttention
+
+    def forward(self, A, X, datadict):
+        tX = conv_module._apply(X, self.lin)
+        key = self.keyop.precomputekey
+        xv = tX.values
+        proj = conv_module.fast_projection
+        out = SegmentAttention.apply(
+            proj(self.att1, xv), proj(self.att3, xv),
+            proj(self.attA, A.values), proj(self.att2, xv),
+            _fetch(datadict, key, "acd"), _fetch(datadict, key, "rowptr"),
+            fetch_backward_orders(datadict, key), False)
+        return SparseTensor(indices=tX.indices, values=out.to(xv.dtype),
+                            nnz=tX.nnz, sparse_shape=tX.sparse_shape)
+
+    return forward
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--runs", default="NGNN-f32,NGNN-f32fast,"
+                        "NGNN-bf16fast,NGAT-f32fast")
+    args = parser.parse_args()
+
+    import torch
+
+    import chip_smoke as cs
+    from pygho_tpu_torch.hodata import (KhopSampler, SpDataloader,
+                                        Sppretransform, synthetic_zinc)
+    from pygho_tpu_torch.honn import conv as conv_module
+    from pygho_tpu_torch.honn import utils as utils_module
+    from pygho_tpu_torch.kernels import set_fused_math
+    from pygho_tpu_torch.models.serve import set_parity_numerics
+
+    set_parity_numerics()
+    pre = Sppretransform(partial(KhopSampler, hop=3), [""], [cs.KEY])
+    datas = [pre(g) for g in synthetic_zinc("train", seed=cs.SEED)]
+    loader = SpDataloader(datas, 128, [cs.KEY], shuffle=True,
+                          drop_last=True, seed=0, backward=True)
+    batches = []
+    while len(batches) < args.steps:
+        batches.extend(loader)
+    batches = batches[:args.steps]
+    print(f"torch {torch.__version__}, {torch.get_num_threads()} threads; "
+          f"{args.steps} batches of 128 graphs as chip_smoke.py trains on")
+    for run in args.runs.split(","):
+        conv, mode = run.split("-")
+        exact = not mode.endswith("fast")
+        dtype = torch.bfloat16 if mode.startswith("bf16") else None
+        set_fused_math(exact)
+        try:
+            t0 = time.perf_counter()
+            base, _ = cs.train_run("cpu", batches, args.steps, conv=conv,
+                                   dtype=dtype)
+            orig, reordered = reordered_batchnorm(utils_module)
+            orig_conv = conv_module.NGATConv.forward
+            utils_module.BatchNorm.forward = reordered
+            if conv == "NGAT" and not exact:
+                conv_module.NGATConv.forward = card_projections(conv_module)
+            try:
+                other, _ = cs.train_run("cpu", batches, args.steps,
+                                        conv=conv, dtype=dtype)
+            finally:
+                utils_module.BatchNorm.forward = orig
+                conv_module.NGATConv.forward = orig_conv
+        finally:
+            set_fused_math(True)
+        rel = [abs(a - b) / abs(b) for a, b in zip(other, base)]
+        print(f"{run}: per-step relative loss difference "
+              f"{[f'{r:.2e}' for r in rel]}; max {max(rel):.3e} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+if __name__ == "__main__":
+    main()
