@@ -68,13 +68,34 @@ Phases, each printing its wall seconds:
 14. NGAT fast training: phase 9 in the fast mode, the ``*_f32fast`` K4
    roles.
 
+15. NGNN-DD serving: serves NGNN-DD 6x128 (``runs/converged/NGNN_dense.json``,
+   weights from a seed) through ``MaPredictor`` as phase 6 does, six K5
+   forward launches per batch; the CPU serves the 40-graph request in
+   batches of ``DENSE_CUT``;
+16. NGNN-DD training: trains it for ten AdamW steps at the row's lr 1e-2
+   as phase 7 does (6 + 6 + 6 K5 launches a step, a bitwise-identical
+   second run); card and CPU train ``DENSE_CUT_STEPS`` steps on the same
+   batches of ``DENSE_CUT`` graphs;
+17. NGNN-DD bf16 training: the same with ``dtype=torch.bfloat16``
+   (``--bf16``): six launches of each ``cw_bmm_*_bf16`` role a step, the
+   peak device memory beside the f32 run's;
+18. NGNN-SD serving: ``MaModel(mode="SD")`` on the sparse adjacency
+   through ``MaPredictor(denseadj=False)`` (the densify route: K5);
+19. NGNN-SD training: phase 16 in SD mode on the densify route (K5's
+   three roles) and on the fused route (``MaDataloader(build_plans=True)``:
+   K1's three f32 roles six times a step and no K5), each step's time
+   printed for both.
+
 The kernels phase holds every fast and bf16 variant of K1 and K4 (the
 roles of phase 3 with operands stored in f32 or bf16, in the exact or the
-fast mode) the same way, bit for bit against its plain version, holds
-``SpspmmSum``'s and ``SegmentAttention``'s gradients in those modes
-against autograd through the plain versions, times each variant beside its
-bound and its plain version, and checks that a variant whose launch is
-refused raises and counts nothing.
+fast mode) and K5's bf16 variant (its three roles on bf16 operands, the
+cotangent of dA and dX in f32) the same way, bit for bit against its
+plain version, holds ``SpspmmSum``'s, ``SegmentAttention``'s and
+``ChannelwiseBmm``'s gradients in those modes against autograd through
+the plain versions, times each variant beside its bound and its plain
+version (K5's also beside ``torch.einsum`` on its operands), and checks
+that a variant of K1 or K4 whose launch is refused raises and counts
+nothing.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -166,8 +187,39 @@ DENSE_LR = 4.5e-3            # the converged run's base learning rate
 DENSE_SERVE_TOL = 1e-4
 # the CPU repeats this many of the card's ten steps: a PPGN-DD 6x128 step
 # at batch 128 takes tens of seconds on the CPU with the plain K5
-DENSE_CPU_STEPS = 3
+DENSE_CPU_STEPS = 2
 DENSE_TRAIN_RTOL = 1e-3
+# NGNN-DD 6x128 as runs/converged/NGNN_dense.json trains it (6 layers x
+# 128, mlplayer 2, outlayer 4, npool sum, lpool mean, cpool mean,
+# normparam 0.194, spdsampler hop 4, batch 128, lr 1e-2), with
+# example/zinc_tpu.py's MLP settings; the same configuration in SD mode
+# (MaModel(mode="SD"), aggr sum) and with bf16 compute (--bf16)
+NGNN_DENSE = dict(num_layer=6, hiddim=128, npool="sum", lpool="mean",
+                  cpool="mean", outlayer=4,
+                  mlp={"dp": 0.0, "norm": "bn", "act": "silu",
+                       "normparam": 0.194, "numlayer": 2, "tailact": True})
+NGNN_DENSE_LR = 1e-2          # the converged run's learning rate
+# each dense configuration's model and learning rate, by conv
+DENSE_CFG = {"PPGN": (DENSE, DENSE_LR), "NGNN": (NGNN_DENSE, NGNN_DENSE_LR)}
+# the NGNN dense phases hold the card against the CPU on batches of
+# DENSE_CUT graphs, DENSE_CUT_STEPS steps of them (both sides on the same
+# cut batches; the launch counts, the bitwise repeat and the timings take
+# the full batches of 128): a 6x128 step at batch 128 takes tens of seconds
+# on the CPU with the plain K5, and the run has four such configurations
+DENSE_CUT = 32
+DENSE_CUT_STEPS = 2
+# per-step losses with bf16 compute, card vs CPU, on the cut batches: every
+# activation is rounded to bf16, so a difference in the last f32 bits of a
+# sum (other orders on the card: cuBLAS, the deterministic index sums)
+# flips roundings, and AdamW's first step at lr 1e-2 turns each flipped
+# small gradient into a parameter move of up to the lr.  The CPU run with
+# every norm's sums reordered moves the two cut steps' losses by 9.5e-5
+# and 3.9e-3 (scripts/fast_mode_tolerances.py --runs NGNNDD-bf16; the same
+# reordering in f32 moves them by 3.2e-6, --runs NGNNDD-f32).  The card
+# sums every product in another order (cuBLAS's bf16 GEMMs among them),
+# not the norms' alone: its losses lay 1.3e-4 and 1.1e-2 from the CPU's
+# on an H100 (the same bits in every run of both); about three times that
+DENSE_BF16_TRAIN_RTOL = 3e-2
 # the giant graph of example/giant_graph_gpu.py as example/giant_graph_tpu.py
 # runs it on one chip: bench_scaling.py's 200x100 community graph (RCM,
 # hop-1 tuples, 556,515 contraction triples), hiddim 128, 3 layers, plain
@@ -185,7 +237,8 @@ GIANT_CPU_STEPS = 10
 GIANT_RTOL = 1e-4
 # K5 vs its plain version on the card: the same rounded f32 products summed
 # in the same order, so they should agree exactly; the tolerance of each
-# output is K5_RTOL * sum |A[b,i,k,d] * X[b,k,j,d]| over its k
+# output is K5_RTOL * sum |A[b,i,k,d] * X[b,k,j,d]| over its k.  The bf16
+# variant widens its bf16 operands exactly, so the same holds for it
 K5_RTOL = 1e-6
 
 # The fast numerics mode (the JAX package's set_fused_math(False), its
@@ -953,24 +1006,26 @@ def train_timing(card, dev, datas, reps=8, conv="NGNN", dtype=None,
           f"between CUDA events")
 
 
-def k5_bound(shape):
+def k5_bound(shape, sizes=(4, 4)):
     """The least time of one K5 role on the card: its two operands read
-    once and its output written once, against its 2 * b * n^3 * d f32
-    operations.  Returns (ms, "bytes" or "operations", bytes,
-    operations)."""
+    once (``sizes``: their bytes a value, 2 for a bf16 operand) and its f32
+    output written once, against its 2 * b * n^3 * d f32 operations.
+    Returns (ms, "bytes" or "operations", bytes, operations)."""
     b, n, _, d = shape
-    nbytes = 3 * b * n * n * d * 4
+    nbytes = (sizes[0] + sizes[1] + 4) * b * n * n * d
     flops = 2 * b * n ** 3 * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def check_k5(datas, dev, rng, flush):
-    """K5's three roles at the dense path's shape and on edge cases,
-    against their plain version on the card; the four ``mamamm`` dim
-    variants; and ``ChannelwiseBmm``'s gradients against autograd through
-    the plain version.  Returns the roles' lines of the report."""
+def check_k5(datas, dev, rng, flush, dtype=None):
+    """K5's three roles, in the variant of operands stored as ``dtype``
+    (f32 unless given; with bf16 the cotangent ``g`` of dA and dX stays
+    f32), at the dense path's shape and on edge cases, against their
+    plain version on the card; the four ``mamamm`` dim variants; and
+    ``ChannelwiseBmm``'s gradients against autograd through the plain
+    version.  Returns the roles' lines of the report."""
     import numpy as np
     import torch
 
@@ -979,15 +1034,19 @@ def check_k5(datas, dev, rng, flush):
     from pygho_tpu_torch.hodata import MaDataloader
     from pygho_tpu_torch.kernels import channelwise_bmm as k5
 
+    dtype = dtype or torch.float32
+    rounded = dtype != torch.float32
     batch = next(iter(MaDataloader(datas, 128)))
     mask = torch.from_numpy(batch["X_mask"]).to(dev)
     shape = tuple(mask.shape) + (DENSE["hiddim"],)
 
-    def operand(shape, mask=None):
-        """Normal values, zero off ``mask`` as ``mamamm`` fills them."""
+    def operand(shape, mask=None, dt=dtype):
+        """Normal values stored as ``dt``, zero off ``mask`` as
+        ``mamamm`` fills them."""
         x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
             .to(dev)
-        return x if mask is None else torch.where(mask[..., None], x, 0.0)
+        x = x if mask is None else torch.where(mask[..., None], x, 0.0)
+        return x.to(dt)
 
     def role_args(A, X, g):
         """Each role's operands as ``ChannelwiseBmm`` passes them, the
@@ -996,6 +1055,10 @@ def check_k5(datas, dev, rng, flush):
         return {k5.FWD: (A, X), k5.DA: (g, X.transpose(1, 2)),
                 k5.DX: (A.transpose(1, 2), g)}
 
+    def operands(shape, mask=None):
+        return role_args(operand(shape, mask), operand(shape, mask),
+                         operand(shape, mask, torch.float32))
+
     def compare(role, A, X):
         """Kernel vs plain version: (max abs error, max error over its
         tolerance K5_RTOL * sum |terms|, bitwise equal)."""
@@ -1003,30 +1066,40 @@ def check_k5(datas, dev, rng, flush):
         ref = k5.cw_bmm_plain(A, X)
         mag = k5.cw_bmm_plain(A.abs(), X.abs())
         sync()
-        if tuple(out.shape) != tuple(A.shape) or not out.is_contiguous():
-            raise AssertionError(f"{role.NAME} gave {tuple(out.shape)}")
+        if tuple(out.shape) != tuple(A.shape) or not out.is_contiguous() \
+                or out.dtype != torch.float32:
+            raise AssertionError(f"{role.NAME} gave {tuple(out.shape)} "
+                                 f"{out.dtype}")
         return measure(out, ref, mag)
 
-    def measure(out, ref, mag):
-        diff = (out - ref).abs()
+    def measure(out, ref, mag, bf16_out=False):
+        """Where ``bf16_out``, the output is rounded to bf16 after its
+        sum and may lie one bf16 step (at most 2^-7 of it) more away."""
+        diff = (out.float() - ref.float()).abs()
+        allow = K5_RTOL * mag
+        if bf16_out:
+            allow = allow + ref.float().abs() * 2.0 ** -7
         return (float(diff.max()),
-                float((diff / (K5_RTOL * mag).clamp_min(1e-30)).max()),
+                float((diff / allow.clamp_min(1e-30)).max()),
                 bool(torch.equal(out, ref)))
 
-    def held(what, err, ratio, same):
+    def held(what, err, ratio, same, bf16_out=False):
+        step = " + one bf16 step (2^-7 of the value)" if bf16_out else ""
         print(f"{what}: max abs err {err:.3e}, {ratio:.3f} of the tolerance "
-              f"{K5_RTOL:g} * sum |terms|; bitwise equal to the plain "
+              f"{K5_RTOL:g} * sum |terms|{step}; bitwise equal to the plain "
               f"version: {same}")
         if not ratio <= 1.0:
             raise AssertionError(f"{what} disagrees with the plain version: "
                                  f"{err}")
 
-    A, X, g = (operand(shape, mask) for _ in range(3))
-    main = role_args(A, X, g)
+    variant = {role: role.variant(dtype, True) for role in k5.ROLES}
+    main = operands(shape, mask)
+    A, X = main[k5.FWD]
     errs = {}
     for role, args in main.items():
         errs[role], ratio, same = compare(role, *args)
-        held(f"{role.NAME} main shape {shape}", errs[role], ratio, same)
+        held(f"{variant[role].NAME} main shape {shape}", errs[role], ratio,
+             same)
 
     # edge cases, for every role: n = 1; n (37, 33) not a multiple of the
     # 32 x 32 tile of (i, j) or of the 4 values of k a stage; d (13, 200)
@@ -1037,21 +1110,21 @@ def check_k5(datas, dev, rng, flush):
                       ("n=37", (3, 37, 37, 128)),
                       ("d=13", (5, 20, 20, 13)),
                       ("n=33, d=200", (2, 33, 33, 200))):
-        case = role_args(*(operand(shp) for _ in range(3)))
-        for role, args in case.items():
-            held(f"{role.NAME} edge case {name} {shp}", *compare(role, *args))
+        for role, args in operands(shp).items():
+            held(f"{variant[role].NAME} edge case {name} {shp}",
+                 *compare(role, *args))
     empty = mask[:6].clone()
     empty[0] = False
-    case = role_args(*(operand(tuple(empty.shape) + (128,), empty)
-                       for _ in range(3)))
-    for role, args in case.items():
-        held(f"{role.NAME} edge case all-masked graph", *compare(role, *args))
+    for role, args in operands(tuple(empty.shape) + (128,), empty).items():
+        held(f"{variant[role].NAME} edge case all-masked graph",
+             *compare(role, *args))
         if bool((k5.cw_bmm(role, *args)[0] != 0).any()):
-            raise AssertionError(f"{role.NAME}: an all-masked graph gave a "
-                                 f"non-zero output")
+            raise AssertionError(f"{variant[role].NAME}: an all-masked "
+                                 f"graph gave a non-zero output")
 
     # mamamm's four (dim1, dim2) variants, each brought to the kernel's
-    # (2, 1) contraction through strided views
+    # (2, 1) contraction through strided views; the result in the
+    # operands' dtype
     ma = MaskedTensor(operand(tuple(empty.shape) + (128,)), empty)
     mb = MaskedTensor(operand(tuple(empty.shape) + (128,)), mask[6:12])
     for dim1, dim2 in ((2, 1), (1, 1), (2, 2), (1, 2)):
@@ -1060,13 +1133,15 @@ def check_k5(datas, dev, rng, flush):
             fa, fb = ma.fill_masked(0.0), mb.fill_masked(0.0)
             fa = fa if dim1 == 2 else fa.transpose(1, 2)
             fb = fb if dim2 == 1 else fb.transpose(1, 2)
-            ref = k5.cw_bmm_plain(fa, fb)
+            ref = k5.cw_bmm_plain(fa, fb).to(dtype)
             mag = k5.cw_bmm_plain(fa.abs(), fb.abs())
         held(f"mamamm (dim1, dim2) = ({dim1}, {dim2}) through "
-             f"{k5.FWD.NAME}", *measure(out, ref, mag))
+             f"{variant[k5.FWD].NAME}", *measure(out, ref, mag))
 
     # ChannelwiseBmm's gradients against autograd through the plain version
-    W = operand(shape, mask)
+    # (in bf16 each returned in its operand's dtype, so rounded after sums
+    # in another order)
+    W = operand(shape, mask, torch.float32)
     Ak, Xk = A.clone().requires_grad_(), X.clone().requires_grad_()
     (k5.ChannelwiseBmm.apply(Ak, Xk) * W).sum().backward()
     Ap, Xp = A.clone().requires_grad_(), X.clone().requires_grad_()
@@ -1076,28 +1151,39 @@ def check_k5(datas, dev, rng, flush):
                 k5.cw_bmm_plain(A.abs().transpose(1, 2), W.abs()))
     for what, got, ref, mag in (("grad_A", Ak.grad, Ap.grad, mags[0]),
                                 ("grad_X", Xk.grad, Xp.grad, mags[1])):
-        held(f"ChannelwiseBmm {what} vs autograd through the plain version",
-             *measure(got, ref, mag))
+        if got.dtype != dtype:
+            raise AssertionError(f"ChannelwiseBmm {what} is {got.dtype}")
+        held(f"ChannelwiseBmm ({mode_name(dtype)}) {what} vs autograd "
+             f"through the plain version", *measure(got, ref, mag, rounded),
+             rounded)
     del Ak, Xk, Ap, Xp, W, mags
 
     report = []
-    bound_ms, bound_by, nbytes, flops = k5_bound(shape)
+    size = 2 if rounded else 4
+    sizes = {k5.FWD: (size, size), k5.DA: (4, size), k5.DX: (size, 4)}
     for role, args in main.items():
+        name = variant[role].NAME
+        bound_ms, bound_by, nbytes, flops = k5_bound(shape, sizes[role])
         ms = time_ms(lambda: k5.cw_bmm(role, *args), flush)
         plain_ms = time_ms(lambda: k5.cw_bmm_plain(*args), flush)
         # the library's call for the same function on the same inputs, f32
-        # without TF32 (set_parity_numerics)
-        lib_ms = time_ms(lambda: torch.einsum("bikd,bkjd->bijd", *args),
+        # without TF32 (set_parity_numerics); in bf16 on the operands
+        # stored as bf16 (the f32 cotangent cast outside the timing)
+        lib_args = tuple(a.to(dtype) for a in args)
+        lib_ms = time_ms(lambda: torch.einsum("bikd,bkjd->bijd", *lib_args),
                          flush)
+        del lib_args
         warm_ms = time_ms(lambda: k5.cw_bmm(role, *args),
                           lambda: torch.cuda._sleep(1_000_000))
-        print(f"{role.NAME} timing (L2 flushed before each launch, median "
-              f"of 30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.einsum {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"({nbytes} bytes at 3.35 TB/s, {flops} f32 operations at 67 "
-              f"TFLOP/s); kernel with its inputs left in L2 {warm_ms:.4f} ms")
-        report.append({"name": role.NAME, "route": "cuda",
-                       "source": role.SOURCE, "replaces": role.REPLACES,
+        print(f"{name} timing (L2 flushed before each launch, median of "
+              f"30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.einsum ({mode_name(dtype)} operands) {lib_ms:.4f} ms; "
+              f"bound {bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, "
+              f"{flops} f32 operations at 67 TFLOP/s); kernel with its "
+              f"inputs left in L2 {warm_ms:.4f} ms")
+        report.append({"name": name, "route": "cuda",
+                       "source": variant[role].SOURCE,
+                       "replaces": variant[role].REPLACES,
                        "launches": None, "max_abs_err": errs[role],
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": lib_ms})
@@ -1709,25 +1795,53 @@ def train_giant(card, dev, inst):
     return launches
 
 
-def dense_model(device):
-    """PPGN-DD as DENSE configures it, weights from seed 0."""
+def dense_name(conv="PPGN", mode="DD", dtype=None, plans=False):
+    """A dense path's name in the output: conv, mode, width, variant and,
+    in SD mode, the route of its contraction."""
+    route = "" if mode == "DD" else (", fused route" if plans
+                                     else ", densify route")
+    return f"{conv}-{mode} 6x128 ({mode_name(dtype)}{route})"
+
+
+def dense_model(device, conv="PPGN", mode="DD", dtype=None):
+    """The dense configuration of ``conv`` (``DENSE_CFG``) in ``mode``,
+    computing in ``dtype`` (f32 unless given), weights from seed 0."""
     from pygho_tpu_torch.models import make_ma_model
 
-    return make_ma_model("PPGN", seed=0, device=device, **DENSE)
+    return make_ma_model(conv, seed=0, device=device, mode=mode, dtype=dtype,
+                         **copy.deepcopy(DENSE_CFG[conv][0]))
 
 
-def serve_dense(graphs, rng, dev):
-    """PPGN-DD 6x128 through MaPredictor on ``dev``, then on the CPU."""
+def dense_roles(conv, mode, dtype=None, plans=False):
+    """The kernel roles that a dense path's layers launch, six times a
+    step each in training, the forward first: K5's (in the variant of
+    ``dtype``), or K1's f32 roles on the SD mode's fused route."""
+    import torch
+
+    from pygho_tpu_torch.kernels import channelwise_bmm as k5
+    from pygho_tpu_torch.kernels import spspmm_sum as k1
+
+    if mode == "SD" and plans:
+        return list(k1.ROLES)
+    return [r.variant(dtype or torch.float32, True) for r in k5.ROLES]
+
+
+def serve_dense(graphs, rng, dev, conv="PPGN", mode="DD"):
+    """A dense configuration 6x128 through MaPredictor on ``dev`` (the
+    densify route in SD mode: the predictor builds no plans), then on the
+    CPU: PPGN-DD on every request, the NGNN paths on the 40-graph request
+    in batches of DENSE_CUT."""
     import numpy as np
 
     from pygho_tpu_torch.hodata import spdsampler
     from pygho_tpu_torch.kernels import KERNELS
-    from pygho_tpu_torch.kernels import channelwise_bmm as k5
     from pygho_tpu_torch.models import MaPredictor
 
-    model = dense_model(dev)
+    model = dense_model(dev, conv, mode)
     sampler = partial(spdsampler, hop=DENSE_HOP)
-    predictor = MaPredictor(model, sampler, batch_size=128, device=dev)
+    denseadj = mode == "DD"
+    predictor = MaPredictor(model, sampler, batch_size=128,
+                            denseadj=denseadj, device=dev)
     datas = predictor.preprocess(graphs)
     calibrate_batchnorm(model, predictor, datas)
 
@@ -1748,7 +1862,8 @@ def serve_dense(graphs, rng, dev):
           f"batches, {[f'{w:.3f}' for w in walls]} s; kernel launches "
           f"{launches}")
     expected = {mod.NAME: 0 for mod in KERNELS}
-    expected[k5.FWD.NAME] = DENSE["num_layer"] * n_batches
+    expected[dense_roles(conv, mode)[0].NAME] = \
+        DENSE_CFG[conv][0]["num_layer"] * n_batches
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
 
@@ -1766,14 +1881,17 @@ def serve_dense(graphs, rng, dev):
         raise AssertionError(f"repeated graphs differ by {rep}")
 
     t0 = time.perf_counter()
-    cpu = MaPredictor(copy.deepcopy(model).cpu(), sampler, batch_size=128,
-                      device="cpu")
-    cpu_full, cpu_part = cpu(datas), cpu([datas[i] for i in subset])
-    diff = max(float(np.abs(cpu_full - full).max()),
-               float(np.abs(cpu_part - part).max()))
+    cut = conv != "PPGN"
+    cpu = MaPredictor(copy.deepcopy(model).cpu(), sampler,
+                      batch_size=DENSE_CUT if cut else 128,
+                      denseadj=denseadj, device="cpu")
+    cpu_part = cpu([datas[i] for i in subset])
+    diff = float(np.abs(cpu_part - part).max())
+    if not cut:
+        diff = max(diff, float(np.abs(cpu(datas) - full).max()))
     print(f"card vs CPU (plain versions, {time.perf_counter() - t0:.3f} s "
-          f"on the CPU): max abs difference {diff:.3e} (tolerance "
-          f"{DENSE_SERVE_TOL:g})")
+          f"on the CPU{f', batches of {DENSE_CUT}' if cut else ''}): max "
+          f"abs difference {diff:.3e} (tolerance {DENSE_SERVE_TOL:g})")
     if not diff <= DENSE_SERVE_TOL:
         raise AssertionError(f"card and CPU disagree by {diff}")
 
@@ -1790,15 +1908,16 @@ def serve_dense(graphs, rng, dev):
     return len(graphs) / raw_s, len(graphs) / pre_s, launches
 
 
-def dense_train_run(device, batches, steps, per_step=None):
-    """PPGN-DD 6x128 from seed 0, ``steps`` AdamW steps at DENSE_LR on
-    ``batches`` through the port's ``make_dense_steps``.  Returns the
-    per-step losses and the model."""
+def dense_train_run(device, batches, steps, per_step=None, conv="PPGN",
+                    mode="DD", dtype=None):
+    """A dense configuration 6x128 from seed 0, ``steps`` AdamW steps at
+    its learning rate on ``batches`` through the port's
+    ``make_dense_steps``.  Returns the per-step losses and the model."""
     from pygho_tpu_torch.models import make_dense_steps, make_optimizer
 
-    model = dense_model(device)
+    model = dense_model(device, conv, mode, dtype)
     model.train()
-    opt = make_optimizer(model, DENSE_LR)
+    opt = make_optimizer(model, DENSE_CFG[conv][1])
     train_step, _ = make_dense_steps()
     losses = []
     for i, batch in enumerate(batches[:steps]):
@@ -1808,12 +1927,16 @@ def dense_train_run(device, batches, steps, per_step=None):
     return [float(x) for x in losses], model
 
 
-def train_dense(card, dev):
-    """PPGN-DD 6x128 trains on the card: 6 launches of each K5 role a
-    step, finite losses, two runs bitwise identical, the CPU's losses
-    within DENSE_TRAIN_RTOL over DENSE_CPU_STEPS steps; then graphs/s
-    trained and the peak device memory.  Returns the launches of the
-    first training run."""
+def train_dense(card, dev, conv="PPGN", mode="DD", dtype=None, plans=False):
+    """A dense configuration 6x128 trains on the card, computing in
+    ``dtype``, in SD mode on the fused route where ``plans`` (the loader's
+    K1 triples) and on the densify route otherwise: 6 launches of each of
+    its kernel's roles a step and no other, finite losses, two runs
+    bitwise identical, the CPU's losses within the tolerance (PPGN-DD over
+    DENSE_CPU_STEPS steps of the same batches; the NGNN paths on
+    DENSE_CUT_STEPS batches of DENSE_CUT graphs, both sides); then
+    graphs/s trained, a step's time and the peak device memory.  Returns
+    the launches of the first training run and the peak."""
     import torch
 
     from pygho_tpu_torch.hodata import (MaDataloader, Mapretransform,
@@ -1821,15 +1944,22 @@ def train_dense(card, dev):
     from pygho_tpu_torch.kernels import KERNELS
     from pygho_tpu_torch.models import make_dense_steps, make_optimizer
 
+    name = dense_name(conv, mode, dtype, plans)
+    run = partial(dense_train_run, conv=conv, mode=mode, dtype=dtype)
     t0 = time.perf_counter()
     pre = Mapretransform(partial(spdsampler, hop=DENSE_HOP))
     datas = [pre(g) for g in synthetic_zinc("train", seed=SEED)]
-    loader = MaDataloader(datas, 128, shuffle=True, drop_last=True, seed=0)
+
+    def loader(bs):
+        return MaDataloader(datas, bs, shuffle=True, drop_last=True, seed=0,
+                            denseadj=mode == "DD", build_plans=plans)
+
+    full = loader(128)
     batches = []
     while len(batches) < TRAIN_STEPS:      # 8 batches an epoch
-        batches.extend(loader)
+        batches.extend(full)
     batches = batches[:TRAIN_STEPS]
-    print(f"dense training data: {len(datas)} graphs of synthetic_zinc("
+    print(f"{name} training data: {len(datas)} graphs of synthetic_zinc("
           f"\"train\"), {TRAIN_STEPS} shuffled batches of 128 (loader seed "
           f"0, n padded to {batches[0]['X_data'].shape[1]}), preprocessed "
           f"and collated in {time.perf_counter() - t0:.3f} s")
@@ -1845,7 +1975,7 @@ def train_dense(card, dev):
     for mod in KERNELS:
         mod.launches = 0
     t0 = time.perf_counter()
-    losses, model = dense_train_run(dev, batches, TRAIN_STEPS, read)
+    losses, model = run(dev, batches, TRAIN_STEPS, read)
     sync()
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -1855,16 +1985,16 @@ def train_dense(card, dev):
     print(f"trained {TRAIN_STEPS} steps in {run_s:.3f} s; losses "
           f"{[f'{x:.6f}' for x in losses]}; kernel launches {launches}; "
           f"peak device memory {peak / 2 ** 30:.3f} GiB")
-    want = {mod.NAME: DENSE["num_layer"]
-            if mod.SOURCE.endswith("channelwise_bmm.cu") else 0
-            for mod in KERNELS}
+    mine = {mod.NAME for mod in dense_roles(conv, mode, dtype, plans)}
+    want = {mod.NAME: DENSE_CFG[conv][0]["num_layer"] if mod.NAME in mine
+            else 0 for mod in KERNELS}
     for i, c in enumerate(per_step):
         if c != want:
             raise AssertionError(f"step {i} launched {c}, expected {want}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
 
-    again, model2 = dense_train_run(dev, batches, TRAIN_STEPS)
+    again, model2 = run(dev, batches, TRAIN_STEPS)
     state, state2 = model.state_dict(), model2.state_dict()
     same = again == losses and all(torch.equal(state[k], state2[k])
                                    for k in state)
@@ -1874,40 +2004,48 @@ def train_dense(card, dev):
         raise AssertionError(f"two runs differ: {losses} vs {again}")
     del model, model2, state, state2
 
+    tol = DENSE_BF16_TRAIN_RTOL if dtype is not None else DENSE_TRAIN_RTOL
     t0 = time.perf_counter()
-    cpu_losses, _ = dense_train_run("cpu", batches, DENSE_CPU_STEPS)
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
-    print(f"card vs CPU (plain versions), the first {DENSE_CPU_STEPS} steps "
-          f"in {time.perf_counter() - t0:.3f} s on the CPU: max relative "
-          f"loss difference {rel:.3e} (tolerance {DENSE_TRAIN_RTOL:g}); CPU "
-          f"losses {[f'{x:.6f}' for x in cpu_losses]}")
-    if not rel <= DENSE_TRAIN_RTOL:
+    if conv == "PPGN":
+        card_losses, what = losses[:DENSE_CPU_STEPS], "the first"
+        cpu_losses, _ = run("cpu", batches, DENSE_CPU_STEPS)
+    else:
+        cut = list(loader(DENSE_CUT))[:DENSE_CUT_STEPS]
+        card_losses, _ = run(dev, cut, DENSE_CUT_STEPS)
+        what = f"batches of {DENSE_CUT} graphs (the same on both sides),"
+        cpu_losses, _ = run("cpu", cut, DENSE_CUT_STEPS)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    print(f"card vs CPU (plain versions), {what} {len(cpu_losses)} steps in "
+          f"{time.perf_counter() - t0:.3f} s on the CPU: max relative loss "
+          f"difference {rel:.3e} (tolerance {tol:g}); card losses "
+          f"{[f'{x:.6f}' for x in card_losses]}, CPU losses "
+          f"{[f'{x:.6f}' for x in cpu_losses]}")
+    if not rel <= tol:
         raise AssertionError(f"card and CPU losses differ by {rel}")
 
     # graphs/s trained: one epoch of 8 steps after a warm-up epoch,
     # collation included, one sync at the end
-    model = dense_model(dev)
+    model = dense_model(dev, conv, mode, dtype)
     model.train()
-    opt = make_optimizer(model, DENSE_LR)
+    opt = make_optimizer(model, DENSE_CFG[conv][1])
     train_step, _ = make_dense_steps()
-    for batch in loader:
+    for batch in full:
         train_step(model, opt, batch)
     sync()
     t0 = time.perf_counter()
     n = 0
-    for batch in loader:
+    for batch in full:
         train_step(model, opt, batch)
         n += 128
     sync()
     gps = n / (time.perf_counter() - t0)
     dev_ms = time_ms(lambda: train_step(model, opt, batches[0]),
                      lambda: None, reps=5, warmup=1, settle=False)
-    print(f"PPGN-DD 6x128 training on {card}: {gps:.1f} graphs/s trained "
-          f"(one epoch of 8 steps, collation included); one step "
-          f"{dev_ms:.3f} ms between CUDA events (median of 5, copy "
-          f"included); peak device memory {peak / 2 ** 30:.3f} GiB "
-          f"({peak} bytes)")
-    return launches
+    print(f"{name} training on {card}: {gps:.1f} graphs/s trained (one "
+          f"epoch of 8 steps, collation included); one step {dev_ms:.3f} ms "
+          f"between CUDA events (median of 5, copy included); peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB ({peak} bytes)")
+    return launches, peak
 
 
 def main():
@@ -1963,8 +2101,10 @@ def main():
     datas = [pre(g) for g in graphs]
     report = check_k1(datas, dev, rng, flush_buf.zero_)
     dense_pre = Mapretransform(partial(spdsampler, hop=DENSE_HOP))
-    report += check_k5([dense_pre(g) for g in graphs], dev, rng,
-                       flush_buf.zero_)
+    dense_datas = [dense_pre(g) for g in graphs]
+    report += check_k5(dense_datas, dev, rng, flush_buf.zero_)
+    report += check_k5(dense_datas, dev, rng, flush_buf.zero_,
+                       torch.bfloat16)
     report += check_k4(datas, dev, rng, flush_buf.zero_)
     # the fast and bf16 variants of K1 and K4
     for name, exact in FAST_VARIANTS:
@@ -1997,7 +2137,7 @@ def main():
     done("dense serving", t0)
 
     t0 = phase("dense training")
-    dense_train_launches = train_dense(card, dev)
+    dense_train_launches, _ = train_dense(card, dev)
     done("dense training", t0)
 
     t0 = phase("NGAT serving")
@@ -2038,14 +2178,49 @@ def main():
         ngat_fast_launches = training(card, dev, "NGAT")
     done("NGAT fast training", t0)
 
+    t0 = phase("NGNN-DD serving")
+    raw_gps, pre_gps, ngnn_dd_launches = serve_dense(graphs, rng, dev,
+                                                     "NGNN")
+    print(f"NGNN-DD 6x128 serving on {card}: {raw_gps:.1f} graphs/s from "
+          f"raw graphs (host precompute included), {pre_gps:.1f} graphs/s "
+          f"from preprocessed graphs")
+    done("NGNN-DD serving", t0)
+
+    t0 = phase("NGNN-DD training")
+    ngnn_dd_train_launches, f32_peak = train_dense(card, dev, "NGNN")
+    done("NGNN-DD training", t0)
+
+    t0 = phase("NGNN-DD bf16 training")
+    ngnn_bf16_train_launches, bf16_peak = train_dense(
+        card, dev, "NGNN", dtype=torch.bfloat16)
+    print(f"NGNN-DD 6x128 peak device memory: bf16 compute "
+          f"{bf16_peak / 2 ** 30:.3f} GiB against f32 "
+          f"{f32_peak / 2 ** 30:.3f} GiB ({bf16_peak / f32_peak:.3f})")
+    done("NGNN-DD bf16 training", t0)
+
+    t0 = phase("NGNN-SD serving")
+    raw_gps, pre_gps, ngnn_sd_launches = serve_dense(graphs, rng, dev,
+                                                     "NGNN", "SD")
+    print(f"NGNN-SD 6x128 (densify route) serving on {card}: {raw_gps:.1f} "
+          f"graphs/s from raw graphs (host precompute included), "
+          f"{pre_gps:.1f} graphs/s from preprocessed graphs")
+    done("NGNN-SD serving", t0)
+
+    t0 = phase("NGNN-SD training")
+    sd_densify_launches, _ = train_dense(card, dev, "NGNN", "SD")
+    sd_fused_launches, _ = train_dense(card, dev, "NGNN", "SD", plans=True)
+    done("NGNN-SD training", t0)
+
     # launches: each main path's run (NGNN serving and training, dense
     # serving and training, NGAT serving and training, giant-graph
-    # training, and the fast and bf16 runs), each counted from 0 just
-    # before the path and read just after
+    # training, the fast and bf16 runs, and the NGNN dense runs), each
+    # counted from 0 just before the path and read just after
     runs = (launches, train_launches, dense_launches, dense_train_launches,
             ngat_launches, ngat_train_launches, giant_launches,
             fast_launches, fast_train_launches, bf16_train_launches,
-            ngat_fast_launches)
+            ngat_fast_launches, ngnn_dd_launches, ngnn_dd_train_launches,
+            ngnn_bf16_train_launches, ngnn_sd_launches, sd_densify_launches,
+            sd_fused_launches)
     for line in report:
         line["launches"] = sum(run[line["name"]] for run in runs)
     unlaunched = [line["name"] for line in report if not line["launches"]

@@ -18,6 +18,13 @@ its vector unit and its VMEM budget); the CUDA kernel handles any ``d``
 and ``n``, so the port keeps the structural conditions only.  Every other
 contraction is a ``torch.einsum`` built from the dims, as the JAX package
 leaves it to XLA.
+
+bf16 operands (the dense model's bf16 compute): K5's bf16 variant takes
+them, and its f32 result is cast to ``A``'s dtype, as the JAX ``mamamm``
+casts (``mamamm.py:65``); operands of two dtypes are both widened to f32
+first, which changes no value.  The einsum widens its operands to f32
+and casts the f32 result to ``A``'s dtype, as JAX's
+``preferred_element_type=float32`` accumulates (``mamamm.py:101-103``).
 """
 
 from __future__ import annotations
@@ -75,16 +82,20 @@ def mamamm(A: MaskedTensor, dim1: int, B: MaskedTensor, dim2: int,
     ``B``; the result carries ``mask``.
 
     Output masked shape: ``(batch?, *A.maskedshape minus dim1,
-    *B.maskedshape minus dim2)``, with the dense dims shared elementwise.
-    Only f32 is ported.
+    *B.maskedshape minus dim2)``, with the dense dims shared elementwise;
+    its dtype is ``A``'s.
     """
     if A.dense_dim != B.dense_dim:
         raise ValueError("dense dims must match")
     tA = A.fill_masked(0.0)
     tB = B.fill_masked(0.0)
+    out_dtype = tA.dtype
     if is_channelwise(A, dim1, B, dim2, broadcast_firstdim):
+        if tA.dtype != tB.dtype:
+            tA, tB = tA.float(), tB.float()
         a = tA if dim1 == 2 else tA.transpose(1, 2)
         b = tB if dim2 == 1 else tB.transpose(1, 2)
-        return MaskedTensor(ChannelwiseBmm.apply(a, b), mask)
+        return MaskedTensor(ChannelwiseBmm.apply(a, b).to(out_dtype), mask)
     spec = _einsum_spec(A, dim1, B, dim2, broadcast_firstdim)
-    return MaskedTensor(torch.einsum(spec, tA, tB), mask)
+    return MaskedTensor(
+        torch.einsum(spec, tA.float(), tB.float()).to(out_dtype), mask)

@@ -10,6 +10,9 @@ subset of ``pygho_tpu/backend/sptensor.py``).
 
 All coalescing and sorting happens on the host (``backend.indexing``); the
 methods here are gathers and segment reductions on the tensors' device.
+The SD mode's batched adjacency is a 3-sparse-dim tensor ``(b, n, n)``
+(``hodata.collate_dense(denseadj=False)``): its encoder runs through
+:meth:`tuplewiseapply`, and ``backend.spmamm`` reads :attr:`rowmask`.
 """
 
 from __future__ import annotations

@@ -58,9 +58,31 @@
 // Measured at the main shape (chip_smoke.py): 68-70% of the byte bound
 // in every role, with the 16-byte path at 128 registers and no spills.
 // Left to a faster version: the tensor cores (TF32 would break the f32
-// parity mode; bf16 operands come with K5's bf16 variant), skipping the
-// padded tail of each graph, and fusing the zero-fill of the masked
-// entries into the loads.
+// parity mode; bf16 products summed in f32 would not, but the sum order
+// of an mma is not k ascending), skipping the padded tail of each graph,
+// and fusing the zero-fill of the masked entries into the loads.
+//
+// The bf16 variant (the dense model's bf16 compute, --bf16): each operand
+// is stored in f32 or in bf16, a template parameter each, as _cw_kernel
+// casts its blocks to f32 (a_ref[0].astype(f32)) whatever they hold:
+//     forward  cw_bmm_fwd_bf16:  A and X bf16;
+//     dA       cw_bmm_da_bf16:   g f32, X^T bf16 (_cw_bwd takes g in f32);
+//     dX       cw_bmm_dx_bf16:   A^T bf16, g f32.
+// Every variant writes f32, as _cw_kernel's out_shape is f32.  A bf16
+// operand is copied into the ring as its raw 16-bit values (16 bytes =
+// 8 channels a cp.async) and widened to f32 where a thread reads it from
+// shared memory (an exact shift; widening as it loads would hold each
+// copy up behind its conversion), so the products and sums are those
+// of the f32 kernel on the widened operands, and the plain version is
+// cw_bmm_plain on the widened operands, bit for bit.  A bf16 operand with
+// d not contiguous, D % 8 != 0 or a stride or base off 16 bytes has no
+// cp.async of its element size (2 bytes): it is loaded and stored to the
+// ring by each thread (a slower path for shapes off the main one).
+// Bound at the main shape: the operands' bytes shrink, the f32 output
+// stays: fwd 2 x 33.6 MB + 67.1 MB = 0.0401 ms, dA and dX 67.1 + 33.6 +
+// 67.1 MB = 0.0501 ms at 3.35 TB/s.  Measured (chip_smoke.py, H100 SXM):
+// fwd 51% of its bound (the f32 store is half its bytes), dA and dX
+// 67-68%, with 128 registers and no spills on the 16-byte path.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes: one entry
 // point per role, each launching its own instance of the kernel so a
@@ -72,8 +94,10 @@
 
 namespace {
 
+// the raw bits of a bf16 value, as the wrapper hands torch.bfloat16 data
+using bf16_bits = uint16_t;
+
 constexpr int kTD = 16;              // channels of a block, 4 a thread
-constexpr int kQuads = kTD / 4;      // float4 quads of a block's channels
 constexpr int kTI = 32;              // rows of i of a block
 constexpr int kTJ = 32;              // columns of j of a block
 constexpr int kKC = 4;               // values of k a stage
@@ -81,16 +105,19 @@ constexpr int kStages = 4;           // stages of the ring
 constexpr int kThreads = 256;
 constexpr int kRI = 4;               // rows of i of a thread, 8 apart
 constexpr int kRJ = 4;               // columns of j of a thread, 8 apart
-// a stage: A as [kKC][kTI][kTD] floats, then X as [kKC][kTJ][kTD]
-constexpr int kStageA = kKC * kTI * kTD;
-constexpr int kStageFloats = kStageA + kKC * kTJ * kTD;
-constexpr size_t kSmemBytes = (size_t)kStages * kStageFloats * sizeof(float);
+// a stage: A as [kKC][kTI][kTD] values of its stored type, then X as
+// [kKC][kTJ][kTD] values of its own
+constexpr int kStageVals = kKC * kTI * kTD;
 static_assert(kTI == 8 * kRI && kTJ == 8 * kRJ, "8 x 8 threads an (i, j)");
 static_assert(kTI == kTJ, "a stage's A and X parts have one layout");
-static_assert(kThreads == 8 * 8 * kQuads, "a thread a (quad, i, j) slot");
-static_assert(kStageA % (4 * kThreads) == 0 &&
-              (kStageFloats - kStageA) % (4 * kThreads) == 0,
-              "a stage splits evenly over the threads");
+static_assert(kThreads == 8 * 8 * (kTD / 4), "a thread a (quad, i, j) slot");
+static_assert(kStageVals % (8 * kThreads) == 0,
+              "a stage splits evenly over the threads, 16 bytes a copy");
+
+template <typename TA, typename TX>
+constexpr size_t smem_bytes() {
+  return (size_t)kStages * kStageVals * (sizeof(TA) + sizeof(TX));
+}
 
 enum Role { kForward, kDA, kDX };
 
@@ -100,7 +127,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // copy BYTES (16 or 4) from src to shared memory, or zeros where !valid
 template <int BYTES>
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
                                            bool valid) {
   const int n = valid ? BYTES : 0;
   if (BYTES == 16) {
@@ -125,6 +152,19 @@ __device__ __forceinline__ void wait_pending() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// four consecutive channels from the ring, widened to f32 (a bf16 value
+// is the high half of its f32: an exact shift)
+__device__ __forceinline__ float4 read4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 read4(const bf16_bits* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(r.x << 16),
+                     __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16),
+                     __uint_as_float(r.y & 0xffff0000u));
+}
+
 __device__ __forceinline__ float4 mul_add(float4 acc, float4 a, float4 x) {
   acc.x = __fadd_rn(acc.x, __fmul_rn(a.x, x.x));
   acc.y = __fadd_rn(acc.y, __fmul_rn(a.y, x.y));
@@ -133,18 +173,50 @@ __device__ __forceinline__ float4 mul_add(float4 acc, float4 a, float4 x) {
   return acc;
 }
 
+// one operand's part of stage k0: dst[kk][r][c] = P[row0 + r, k0 + kk,
+// d0 + c] (row: i for A, j for X) through the strides s_r, s_k, s_d, or 0
+// out of range.  VEC: 16-byte cp.async copies (4 f32 or 8 bf16 channels),
+// consecutive threads on consecutive 16 bytes of shared memory; else one
+// value a copy: a 4-byte cp.async for f32, a load and a store for bf16.
+template <typename T, bool VEC>
+__device__ __forceinline__ void fetch_operand(T* dst, const T* P,
+                                              int64_t s_r, int64_t s_k,
+                                              int64_t s_d, int row0, int k0,
+                                              int d0, int n, int D, int t) {
+  constexpr int W = VEC ? 16 / (int)sizeof(T) : 1;
+  constexpr int kPer = kStageVals / W / kThreads;
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int e = t + m * kThreads;           // in units of W values
+    const int c = (e % (kTD / W)) * W;        // channel in the slice
+    const int r = (e / (kTD / W)) % kTI;      // i (A) or j (X)
+    const int kk = e / (kTD / W) / kTI;
+    const int d = d0 + c, k = k0 + kk, row = row0 + r;
+    const bool ok = d < D && k < n && row < n;
+    const T* src = ok ? P + row * s_r + k * s_k + (int64_t)d * s_d : P;
+    if constexpr (VEC || sizeof(T) == 4) {
+      copy_async<VEC ? 16 : 4>(dst + e * W, src, ok);
+    } else {
+      dst[e] = ok ? *src : T(0);
+    }
+  }
+}
+
 // A is read as A[b, i, k, d] and X as X[b, k, j, d], each through its
-// strides; out is (B, n, n, D) contiguous.  VEC: d is contiguous, D % 4 ==
-// 0 and every other stride and both bases 16-byte aligned, so a copy and a
-// store take 4 channels.
-template <bool VEC, Role role>
+// strides; out is (B, n, n, D) f32 contiguous.  VEC: d is contiguous in
+// both operands, D a multiple of each operand's 16-byte copy, and every
+// other stride and all three bases 16-byte aligned, so a copy takes 16
+// bytes and a store 4 channels.
+template <typename TA, typename TX, bool VEC, Role role>
 __global__ void __launch_bounds__(kThreads, 2)
-cw_bmm_kernel(const float* __restrict__ A, int64_t a_sb, int64_t a_si,
-              int64_t a_sk, int64_t a_sd, const float* __restrict__ X,
+cw_bmm_kernel(const TA* __restrict__ A, int64_t a_sb, int64_t a_si,
+              int64_t a_sk, int64_t a_sd, const TX* __restrict__ X,
               int64_t x_sb, int64_t x_sk, int64_t x_sj, int64_t x_sd,
               float* __restrict__ out, int n, int D, int tiles_j,
               int tiles_d) {
-  extern __shared__ __align__(16) float ring[];
+  extern __shared__ __align__(16) unsigned char ring[];
+  constexpr size_t kStageBytes =
+      (size_t)kStageVals * (sizeof(TA) + sizeof(TX));
   const int t = threadIdx.x;
   // consecutive blocks take neighbouring channel slices of one tile
   const int tile = blockIdx.x / tiles_d;
@@ -152,37 +224,22 @@ cw_bmm_kernel(const float* __restrict__ A, int64_t a_sb, int64_t a_si,
   const int i0 = (tile / tiles_j) * kTI;
   const int j0 = (tile % tiles_j) * kTJ;
   const int64_t b = blockIdx.y;
-  const float* Ab = A + b * a_sb;
-  const float* Xb = X + b * x_sb;
+  const TA* Ab = A + b * a_sb;
+  const TX* Xb = X + b * x_sb;
 
-  // stage `slot` <- k in [k0, k0 + kKC); a thread copies kStageA /
-  // kThreads floats of each operand, consecutive threads consecutive
-  // 16 (VEC) or 4 bytes of shared memory
+  auto stage_a = [&](int slot) {
+    return reinterpret_cast<TA*>(ring + slot * kStageBytes);
+  };
+  auto stage_x = [&](int slot) {
+    return reinterpret_cast<TX*>(ring + slot * kStageBytes +
+                                 kStageVals * sizeof(TA));
+  };
+  // stage `slot` <- k in [k0, k0 + kKC)
   auto fetch = [&](int slot, int k0) {
-    float* sA = ring + slot * kStageFloats;
-    float* sX = sA + kStageA;
-    constexpr int W = VEC ? 4 : 1;
-    constexpr int kPer = kStageA / W / kThreads;
-#pragma unroll
-    for (int m = 0; m < kPer; ++m) {
-      const int e = t + m * kThreads;           // in units of W floats
-      const int c = (e % (kTD / W)) * W;        // channel in the slice
-      const int r = (e / (kTD / W)) % kTI;      // i (A) or j (X)
-      const int kk = e / (kTD / W) / kTI;
-      const int d = d0 + c, k = k0 + kk;
-      const bool ok = d < D && k < n;
-      const int i = i0 + r, j = j0 + r;
-      copy_async<4 * W>(sA + e * W,
-                        ok && i < n
-                            ? Ab + i * a_si + k * a_sk + (int64_t)d * a_sd
-                            : A,
-                        ok && i < n);
-      copy_async<4 * W>(sX + e * W,
-                        ok && j < n
-                            ? Xb + k * x_sk + j * x_sj + (int64_t)d * x_sd
-                            : X,
-                        ok && j < n);
-    }
+    fetch_operand<TA, VEC>(stage_a(slot), Ab, a_si, a_sk, a_sd, i0, k0, d0,
+                           n, D, t);
+    fetch_operand<TX, VEC>(stage_x(slot), Xb, x_sj, x_sk, x_sd, j0, k0, d0,
+                           n, D, t);
   };
 
   // this thread's outputs: channels 4q..4q+3 of the slice, rows ib + 8r
@@ -210,18 +267,17 @@ cw_bmm_kernel(const float* __restrict__ A, int64_t a_sb, int64_t a_si,
     const int next = ch + kStages - 1;
     if (next < chunks) fetch(next % kStages, next * kKC);
     commit();
-    const float4* sA =
-        reinterpret_cast<const float4*>(ring + (ch % kStages) * kStageFloats);
-    const float4* sX = sA + kStageA / 4;
+    const TA* sA = stage_a(ch % kStages);
+    const TX* sX = stage_x(ch % kStages);
 #pragma unroll
     for (int kk = 0; kk < kKC; ++kk) {
       float4 a[kRI];
 #pragma unroll
       for (int r = 0; r < kRI; ++r)
-        a[r] = sA[(kk * kTI + ib + 8 * r) * kQuads + q];
+        a[r] = read4(sA + (kk * kTI + ib + 8 * r) * kTD + 4 * q);
 #pragma unroll
       for (int c = 0; c < kRJ; ++c) {
-        const float4 x = sX[(kk * kTJ + jb + 8 * c) * kQuads + q];
+        const float4 x = read4(sX + (kk * kTJ + jb + 8 * c) * kTD + 4 * q);
 #pragma unroll
         for (int r = 0; r < kRI; ++r) acc[r][c] = mul_add(acc[r][c], a[r], x);
       }
@@ -256,26 +312,38 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <bool VEC, Role role>
-int run(const float* A, int64_t a_sb, int64_t a_si, int64_t a_sk,
-        int64_t a_sd, const float* X, int64_t x_sb, int64_t x_sk,
+// an operand can take 16-byte copies: d contiguous, D a whole number of
+// copies, the other strides and the base on 16 bytes
+template <typename T>
+bool vec_ok(const T* P, int64_t s0, int64_t s1, int64_t s2, int64_t s_d,
+            int64_t D) {
+  constexpr int64_t W = 16 / sizeof(T);
+  return s_d == 1 && D % W == 0 && (s0 | s1 | s2) % W == 0 && aligned16(P);
+}
+
+template <typename TA, typename TX, bool VEC, Role role>
+int run(const TA* A, int64_t a_sb, int64_t a_si, int64_t a_sk,
+        int64_t a_sd, const TX* X, int64_t x_sb, int64_t x_sk,
         int64_t x_sj, int64_t x_sd, float* out, int64_t n, int64_t D,
         int64_t tiles_j, int64_t tiles_d, const dim3& grid, cudaStream_t s) {
+  constexpr size_t kSmem = smem_bytes<TA, TX>();
   const cudaError_t e = cudaFuncSetAttribute(
-      cw_bmm_kernel<VEC, role>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      cw_bmm_kernel<TA, TX, VEC, role>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (e != cudaSuccess) return (int)e;
-  cw_bmm_kernel<VEC, role><<<grid, kThreads, kSmemBytes, s>>>(
+  cw_bmm_kernel<TA, TX, VEC, role><<<grid, kThreads, kSmem, s>>>(
       A, a_sb, a_si, a_sk, a_sd, X, x_sb, x_sk, x_sj, x_sd, out, (int)n,
       (int)D, (int)tiles_j, (int)tiles_d);
   return (int)cudaGetLastError();
 }
 
-template <Role role>
-int launch(const float* A, int64_t a_sb, int64_t a_si, int64_t a_sk,
-           int64_t a_sd, const float* X, int64_t x_sb, int64_t x_sk,
+template <typename TA, typename TX, Role role>
+int launch(const void* Av, int64_t a_sb, int64_t a_si, int64_t a_sk,
+           int64_t a_sd, const void* Xv, int64_t x_sb, int64_t x_sk,
            int64_t x_sj, int64_t x_sd, float* out, int64_t B, int64_t n,
            int64_t D, void* stream) {
+  const TA* A = static_cast<const TA*>(Av);
+  const TX* X = static_cast<const TX*>(Xv);
   if (B <= 0 || n <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   if (n > 0x7fffffffLL || D > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -285,51 +353,43 @@ int launch(const float* A, int64_t a_sb, int64_t a_si, int64_t a_sk,
     return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)(tiles * tiles_d), (unsigned)B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = D % 4 == 0 && a_sd == 1 && x_sd == 1 &&
-                   (a_sb | a_si | a_sk | x_sb | x_sk | x_sj) % 4 == 0 &&
-                   aligned16(A) && aligned16(X) && aligned16(out);
-  return vec ? run<true, role>(A, a_sb, a_si, a_sk, a_sd, X, x_sb, x_sk,
-                               x_sj, x_sd, out, n, D, tiles_j, tiles_d,
-                               grid, s)
-             : run<false, role>(A, a_sb, a_si, a_sk, a_sd, X, x_sb, x_sk,
-                                x_sj, x_sd, out, n, D, tiles_j, tiles_d,
-                                grid, s);
+  const bool vec = vec_ok(A, a_sb, a_si, a_sk, a_sd, D) &&
+                   vec_ok(X, x_sb, x_sk, x_sj, x_sd, D) && aligned16(out);
+  return vec ? run<TA, TX, true, role>(A, a_sb, a_si, a_sk, a_sd, X, x_sb,
+                                       x_sk, x_sj, x_sd, out, n, D, tiles_j,
+                                       tiles_d, grid, s)
+             : run<TA, TX, false, role>(A, a_sb, a_si, a_sk, a_sd, X, x_sb,
+                                        x_sk, x_sj, x_sd, out, n, D, tiles_j,
+                                        tiles_d, grid, s);
 }
 
 }  // namespace
 
 // Every entry point: A read as A[b, i, k, d] through the strides a_sb,
 // a_si, a_sk, a_sd and X as X[b, k, j, d] through x_sb, x_sk, x_sj, x_sd
-// (in elements, each >= 0), both f32 of extents (B, n, n, D); out: (B, n,
-// n, D) f32, contiguous, written in full.  Returns the cudaGetLastError()
-// of the launch (0 on success).
+// (in elements, each >= 0), both of extents (B, n, n, D), each f32 or
+// bf16 as the entry point's name and comment say; out: (B, n, n, D) f32,
+// contiguous, written in full.  Returns the cudaGetLastError() of the
+// launch (0 on success).
+#define CW_ENTRY(NAME, TA, TX, ROLE)                                        \
+  extern "C" int NAME(const void* A, int64_t a_sb, int64_t a_si,            \
+                      int64_t a_sk, int64_t a_sd, const void* X,            \
+                      int64_t x_sb, int64_t x_sk, int64_t x_sj,             \
+                      int64_t x_sd, float* out, int64_t B, int64_t n,       \
+                      int64_t D, void* stream) {                            \
+    return launch<TA, TX, ROLE>(A, a_sb, a_si, a_sk, a_sd, X, x_sb, x_sk,   \
+                                x_sj, x_sd, out, B, n, D, stream);          \
+  }
 
 // forward: out = cw(A, X)
-extern "C" int cw_bmm_fwd_f32(const float* A, int64_t a_sb, int64_t a_si,
-                              int64_t a_sk, int64_t a_sd, const float* X,
-                              int64_t x_sb, int64_t x_sk, int64_t x_sj,
-                              int64_t x_sd, float* out, int64_t B, int64_t n,
-                              int64_t D, void* stream) {
-  return launch<kForward>(A, a_sb, a_si, a_sk, a_sd, X, x_sb, x_sk, x_sj,
-                          x_sd, out, B, n, D, stream);
-}
-
+CW_ENTRY(cw_bmm_fwd_f32, float, float, kForward)
 // dA = cw(g, X^T): A = g, X = the forward's X with its n axes swapped
-extern "C" int cw_bmm_da_f32(const float* A, int64_t a_sb, int64_t a_si,
-                             int64_t a_sk, int64_t a_sd, const float* X,
-                             int64_t x_sb, int64_t x_sk, int64_t x_sj,
-                             int64_t x_sd, float* out, int64_t B, int64_t n,
-                             int64_t D, void* stream) {
-  return launch<kDA>(A, a_sb, a_si, a_sk, a_sd, X, x_sb, x_sk, x_sj, x_sd,
-                     out, B, n, D, stream);
-}
-
+CW_ENTRY(cw_bmm_da_f32, float, float, kDA)
 // dX = cw(A^T, g): A = the forward's A with its n axes swapped, X = g
-extern "C" int cw_bmm_dx_f32(const float* A, int64_t a_sb, int64_t a_si,
-                             int64_t a_sk, int64_t a_sd, const float* X,
-                             int64_t x_sb, int64_t x_sk, int64_t x_sj,
-                             int64_t x_sd, float* out, int64_t B, int64_t n,
-                             int64_t D, void* stream) {
-  return launch<kDX>(A, a_sb, a_si, a_sk, a_sd, X, x_sb, x_sk, x_sj, x_sd,
-                     out, B, n, D, stream);
-}
+CW_ENTRY(cw_bmm_dx_f32, float, float, kDX)
+// the bf16 variant: the forward on bf16 A and X
+CW_ENTRY(cw_bmm_fwd_bf16, bf16_bits, bf16_bits, kForward)
+// dA on an f32 cotangent g and a bf16 X^T
+CW_ENTRY(cw_bmm_da_bf16, float, bf16_bits, kDA)
+// dX on a bf16 A^T and an f32 cotangent g
+CW_ENTRY(cw_bmm_dx_bf16, bf16_bits, float, kDX)

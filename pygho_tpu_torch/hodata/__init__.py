@@ -1,7 +1,7 @@
 from .datasets import synthetic_zinc
 from .graph import Graph
 from .loader import (Buckets, MaDataloader, Mapretransform, SpDataloader,
-                     Sppretransform, add_rowptr)
+                     Sppretransform, add_rowptr, add_spmamm_triples)
 from .ma_data import batch_to_dense_dict, collate_dense, ma_datapreprocess
 from .ma_sampler import spdsampler
 from .sp_data import (batch_to_sparse_dict, collate_sparse, parsekey,
@@ -10,6 +10,7 @@ from .sp_sampler import KhopSampler
 
 __all__ = ["Buckets", "Graph", "KhopSampler", "MaDataloader",
            "Mapretransform", "SpDataloader", "Sppretransform", "add_rowptr",
-           "batch_to_dense_dict", "batch_to_sparse_dict", "collate_dense",
-           "collate_sparse", "ma_datapreprocess", "parsekey",
-           "sp_datapreprocess", "spdsampler", "synthetic_zinc"]
+           "add_spmamm_triples", "batch_to_dense_dict",
+           "batch_to_sparse_dict", "collate_dense", "collate_sparse",
+           "ma_datapreprocess", "parsekey", "sp_datapreprocess",
+           "spdsampler", "synthetic_zinc"]

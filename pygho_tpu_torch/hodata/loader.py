@@ -6,7 +6,10 @@ device prefetch.  In place of the TPU kernel plans (``add_spspmm_plans``)
 the sparse loader gives each precompute key what the CUDA kernels read
 (:func:`add_rowptr`): the real ``acd`` triples and their row pointer, and
 for training the same triples in the orders of the two backward roles.
-The dense loader needs nothing of the kind: K5 reads the padded tensors.
+The dense loader needs nothing of the kind for a dense adjacency (K5
+reads the padded tensors); with a sparse one and ``build_plans`` it gives
+the fused route of ``spmamm`` K1's triples in the same way
+(:func:`add_spmamm_triples`).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 
 from ..backend.indexing import PAD_INDEX
 from ..honn.sp_operator import KEYSEP
+from ..kernels.fused_spmamm import spmamm_triples
 from .ma_data import collate_dense, ma_datapreprocess
 from .sp_data import collate_sparse, parsekey, sp_datapreprocess
 
@@ -127,6 +131,37 @@ def add_rowptr(batch: Dict[str, Any], keys: Sequence[str],
                 batch[f"{key}{KEYSEP}rowptr_{role}"] = rowptr
 
 
+def add_spmamm_triples(batch: Dict[str, Any],
+                       plan_dims: Sequence[Tuple[int, ...]],
+                       masked_ndim: int) -> None:
+    """For every ``(dim1, dim2[, masked_ndim])`` of ``plan_dims``, give a
+    collated SD batch (in place) the fused route's K1 arrays under the key
+    ``spmamm___<dim1>___<dim2>``: the triples of
+    :func:`kernels.fused_spmamm.spmamm_triples` as int32 ``___acd``, their
+    row pointer ``___rowptr`` over ``rows = bsz * n_pad ** (masked_ndim -
+    1)`` flat output rows, and the backward roles' orders
+    (:func:`backward_orders`: dX over the adjacency's ``E_pad`` value
+    rows, dA over the ``rows`` rows of B).  ``masked_ndim`` is B's masked
+    rank with the batch, the tuple tensor's unless the third element of a
+    pair gives another."""
+    bsz, n_pad = batch["x"].shape[:2]
+    counts = batch["node_mask"].sum(1).astype(np.int64)
+    nnz_pad = batch["A_indices"].shape[1]
+    for dims in plan_dims:
+        dim1, dim2 = dims[0], dims[1]
+        mnd = dims[2] if len(dims) > 2 else masked_ndim
+        key = f"spmamm{KEYSEP}{dim1}{KEYSEP}{dim2}"
+        tuv = spmamm_triples(batch["A_indices"], dim1, n_pad, counts,
+                             mnd - 2)
+        rows = bsz * n_pad ** (mnd - 1)
+        batch[f"{key}{KEYSEP}acd"] = tuv.astype(np.int32)
+        batch[f"{key}{KEYSEP}rowptr"] = row_pointer(tuv[0], rows)
+        for role, (btuv, rowptr) in backward_orders(tuv, nnz_pad,
+                                                    rows).items():
+            batch[f"{key}{KEYSEP}acd_{role}"] = btuv
+            batch[f"{key}{KEYSEP}rowptr_{role}"] = rowptr
+
+
 class _BaseLoader:
     """Batches of ``dataset`` collated in the calling thread, each padded
     with empty graphs to ``batch_size`` (reference Wrapper.py:101-176).
@@ -189,21 +224,37 @@ class SpDataloader(_BaseLoader):
 class MaDataloader(_BaseLoader):
     """Dense batches (reference Wrapper.py:135-176).  Yields the numpy
     dicts of ``collate_dense``; ``batch_to_dense_dict`` moves one onto a
-    device.  Only the dense adjacency is ported: ``denseadj=False`` (SD
-    mode) and ``build_plans`` (the SD mode's K2 plans) raise."""
+    device.
+
+    ``denseadj=False`` (SD mode) collates a sparse batched adjacency.
+    With it, ``build_plans=True`` adds the fused route's K1 triples, row
+    pointer and backward orders (:func:`add_spmamm_triples`) for the
+    ``spmamm`` contractions in ``plan_dims`` (collect them with
+    ``honn.parse_spmamm_dims(model)``), so that those contractions run on
+    K1; without plans they take the densify route (K5).  The JAX loader
+    ships its plans only where its TPU kernel's chunks come out at least
+    half full (its chunk-fill guard); that guard measures the TPU's chunk
+    geometry, which the port has none of (K1 walks a row pointer), so the
+    port ships the triples whenever ``build_plans`` asks for them.  With a
+    dense adjacency ``build_plans`` does nothing, as in the JAX package."""
 
     def __init__(self, dataset: List[Dict[str, Any]], batch_size: int,
                  annotate: Sequence[str] = ("",), denseadj: bool = True,
-                 build_plans: bool = False, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0):
-        if not denseadj or build_plans:
-            raise NotImplementedError(
-                "the SD mode (denseadj=False) and its kernel plans "
-                "(build_plans) are not ported yet")
+                 build_plans: bool = False,
+                 plan_dims: Sequence[Tuple[int, ...]] = ((1, 2),),
+                 shuffle: bool = False, drop_last: bool = False,
+                 seed: int = 0):
         super().__init__(dataset, batch_size, shuffle, drop_last, seed)
         self.annotate = tuple(annotate)
+        self.denseadj = denseadj
+        self.build_plans = build_plans
+        self.plan_dims = tuple(tuple(p) for p in plan_dims)
 
     def _collate(self, datas):
-        return collate_dense(datas, self.annotate,
-                             num_graphs=self.batch_size,
-                             buckets=self.buckets)
+        batch = collate_dense(datas, self.annotate,
+                              num_graphs=self.batch_size,
+                              buckets=self.buckets, denseadj=self.denseadj)
+        if self.build_plans and not self.denseadj:
+            masked_ndim = len(datas[0][f"tupleshape{self.annotate[0]}"]) + 1
+            add_spmamm_triples(batch, self.plan_dims, masked_ndim)
+        return batch

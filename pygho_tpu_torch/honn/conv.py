@@ -31,7 +31,9 @@ def _apply(X: Tensorish, lin: MLP) -> Tensorish:
 
 class NGNNConv(nn.Module):
     """Nested GNN layer: X <- MP_subg2D(A, MLP(X))
-    (reference Conv.py:20-58; Zhang & Li, NeurIPS 2021)."""
+    (reference Conv.py:20-58; Zhang & Li, NeurIPS 2021), in the sparse
+    ("SS": K1), dense ("DD": K5) and sparse-adjacency ("SD": K1 or K5,
+    ``backend.spmamm``) modes."""
 
     def __init__(self, indim: int, outdim: int, aggr: str = "sum",
                  mode: str = "SS", mlp: dict = {}, optuplefeat: str = "X",
@@ -41,8 +43,8 @@ class NGNNConv(nn.Module):
                                                       optuplefeat, opadj)
         self.lin = MLP(indim, outdim, generator=generator, **mlp)
 
-    def forward(self, A: SparseTensor, X: SparseTensor,
-                datadict: Dict) -> SparseTensor:
+    def forward(self, A: Tensorish, X: Tensorish,
+                datadict: Dict) -> Tensorish:
         tX = _apply(X, self.lin)
         return self.aggr(A, tX, datadict, tX)
 

@@ -1,9 +1,10 @@
 """Mode-string dispatch over the operators (port of
 ``pygho_tpu/honn/tensorop.py``).
 
-Ported: the sparse ("SS") mode of the NGNN operators, and the dense
-("DD") mode of ``Op2FWL`` (sum aggregation only, as in the JAX package)
-and of ``OpPoolingSubg2D``.  Other modes raise."""
+Ported: ``OpMessagePassingOnSubg2D`` in its three modes ("SS" sparse
+adjacency and tuples, "SD" sparse adjacency with dense tuples, "DD" dense
+both, sum aggregation only, as in the JAX package), the dense mode of
+``Op2FWL`` (sum only) and ``OpPoolingSubg2D``.  Other modes raise."""
 
 from __future__ import annotations
 
@@ -21,10 +22,18 @@ class OpMessagePassingOnSubg2D(nn.Module):
     def __init__(self, mode: str = "SS", aggr: str = "sum",
                  optuplefeat: str = "X", opadj: str = "A"):
         super().__init__()
-        if mode != "SS":
+        if mode == "SS":
+            self.mod = SpOperator.OpMessagePassingOnSubg2D(aggr, optuplefeat,
+                                                           opadj)
+        elif mode == "SD":
+            self.mod = MaOperator.OpSpMessagePassingOnSubg2D(aggr)
+        elif mode == "DD":
+            if aggr != "sum":
+                raise ValueError(f"only sum aggregation for a dense "
+                                 f"adjacency, got {aggr!r}")
+            self.mod = MaOperator.OpMessagePassingOnSubg2D()
+        else:
             raise NotImplementedError(f"mode {mode!r} is not ported yet")
-        self.mod = SpOperator.OpMessagePassingOnSubg2D(aggr, optuplefeat,
-                                                       opadj)
 
     def forward(self, A, X, datadict: Dict, tarX):
         return self.mod(A, X, datadict, tarX)

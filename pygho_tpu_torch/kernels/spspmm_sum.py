@@ -108,13 +108,13 @@ VARIANTS = (("f32fast", torch.float32, False),
             ("bf16fast", torch.bfloat16, False))
 
 
-def add_variants(roles) -> Tuple[Role, ...]:
-    """Makes the three other variants of each exact f32 role in ``roles``
-    (named with the suffix of :data:`VARIANTS` in place of ``_f32``) and
-    returns them, role by role."""
+def add_variants(roles, variants=VARIANTS) -> Tuple[Role, ...]:
+    """Makes the ``variants`` (by default the three other variants) of
+    each exact f32 role in ``roles``, named with their suffix in place of
+    ``_f32``, and returns them, role by role."""
     made = []
     for base in roles:
-        for suffix, dtype, exact in VARIANTS:
+        for suffix, dtype, exact in variants:
             mode = "exact" if exact else "fast (exact=False)"
             role = Role(base.NAME.replace("_f32", f"_{suffix}"),
                         f"{base.REPLACES}, {mode}, "
@@ -180,27 +180,35 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def stored_dtype(role: Role, U: torch.Tensor, V: torch.Tensor) -> torch.dtype:
-    """The stored dtype that picks ``role``'s variant: the dtype of the
-    operands, both of one dtype in the forward; in the gradient roles that
-    of the operand beside the cotangent, which must be f32.  Raises on
-    anything else (mixed operands, a dtype with no variant)."""
-    grad = _GRAD_OPERAND[role.base]
+def operands_dtype(name: str, grad: Optional[int], L: torch.Tensor,
+                   R: torch.Tensor, names: str = "UV") -> torch.dtype:
+    """The stored dtype that picks the variant of the role ``name`` on the
+    operands ``L`` and ``R`` (called ``names`` in errors): both operands'
+    one dtype where neither is a cotangent (``grad`` None, a forward);
+    else that of the operand beside the cotangent (``grad``: 0 for ``L``,
+    1 for ``R``), which must be f32.  Raises on anything else (mixed
+    operands, a dtype with no variant)."""
     if grad is None:
-        if U.dtype != V.dtype:
-            raise TypeError(f"{role.base.NAME}: U and V must share one "
-                            f"dtype, got {U.dtype} and {V.dtype}")
-        dtype = U.dtype
+        if L.dtype != R.dtype:
+            raise TypeError(f"{name}: {names[0]} and {names[1]} must share "
+                            f"one dtype, got {L.dtype} and {R.dtype}")
+        dtype = L.dtype
     else:
-        g, x = (U, V) if grad == 0 else (V, U)
+        g, x = (L, R) if grad == 0 else (R, L)
         if g.dtype != torch.float32:
-            raise TypeError(f"{role.base.NAME}: the cotangent "
-                            f"{'UV'[grad]} must be float32, got {g.dtype}")
+            raise TypeError(f"{name}: the cotangent {names[grad]} must be "
+                            f"float32, got {g.dtype}")
         dtype = x.dtype
     if dtype not in STORED:
-        raise TypeError(f"U and V must be float32 or bfloat16, got "
-                        f"{U.dtype}, {V.dtype}")
+        raise TypeError(f"{names[0]} and {names[1]} must be float32 or "
+                        f"bfloat16, got {L.dtype}, {R.dtype}")
     return dtype
+
+
+def stored_dtype(role: Role, U: torch.Tensor, V: torch.Tensor) -> torch.dtype:
+    """The stored dtype that picks ``role``'s variant (:func:`operands_dtype`
+    with K1's cotangents: dX's ``U``, dA's ``V``)."""
+    return operands_dtype(role.base.NAME, _GRAD_OPERAND[role.base], U, V)
 
 
 def _check(U, V, tuv, rowptr):

@@ -131,23 +131,23 @@ class MaPredictor(_Predictor):
     """Order-preserving batched inference for dense (masked) models:
     ``MaPredictor(model, partial(spdsampler, hop=4))`` then
     ``predictor(graphs) -> (len(graphs), num_tasks)``.  Every batch is
-    padded with empty graphs to ``batch_size``.  Only the dense adjacency
-    is ported (``denseadj=True``)."""
+    padded with empty graphs to ``batch_size``.  ``denseadj=False`` serves
+    an SD-mode model on the sparse adjacency; as in the JAX package it
+    builds no fused-route triples, so the SD contractions take the
+    densify route (K5)."""
 
     def __init__(self, model: nn.Module, tuplesamplers,
                  annotate: Sequence[str] = ("",), batch_size: int = 128,
                  denseadj: bool = True, num_workers: int = 0,
                  device: DeviceLike = None):
-        if not denseadj:
-            raise NotImplementedError(
-                "MaPredictor(denseadj=False), the SD mode, is not ported "
-                "yet")
         super().__init__(model, batch_size, num_workers, device)
         self.pre = Mapretransform(tuplesamplers, annotate)
         self.annotate = tuple(annotate)
+        self.denseadj = denseadj
 
     def _loader(self, datas):
-        return MaDataloader(datas, self.batch_size, self.annotate)
+        return MaDataloader(datas, self.batch_size, self.annotate,
+                            denseadj=self.denseadj)
 
     def _to_dict(self, batch):
         return batch_to_dense_dict(batch, self.annotate, self.device)

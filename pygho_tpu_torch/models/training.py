@@ -159,5 +159,7 @@ def make_sparse_steps(annotate=("",)) -> Tuple[Callable, Callable]:
 def make_dense_steps(annotate=("",)) -> Tuple[Callable, Callable]:
     """Train and eval steps for dense models (``MaModel``), in the parity
     mode, with :func:`make_sparse_steps`' contract; the batch comes from
-    ``MaDataloader``."""
+    ``MaDataloader``, in either mode.  An SD batch built with
+    ``build_plans=True`` carries the fused route's K1 triples and backward
+    orders, which go to the device with the batch."""
     return _make_steps(batch_to_dense_dict, annotate)

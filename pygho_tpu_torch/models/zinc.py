@@ -1,7 +1,8 @@
 """ZINC-style HOGNN models (port of ``InputEncoderSp``, ``SpModel``,
 ``make_sp_model``, ``InputEncoderMa``, ``MaModel`` and ``make_ma_model``
-from ``pygho_tpu/models/zinc.py``; NGNN and NGAT in sparse mode, in f32
-or with bf16 compute over f32 parameters, and PPGN in dense mode, f32).
+from ``pygho_tpu/models/zinc.py``; NGNN and NGAT in sparse mode, NGNN in
+the dense modes (DD, SD) and PPGN in dense mode, each in f32 or with
+bf16 compute over f32 parameters).
 
 ``SpModel`` takes the datadict of ``hodata.batch_to_sparse_dict``,
 ``MaModel`` that of ``hodata.batch_to_dense_dict``; both return
@@ -199,50 +200,81 @@ class InputEncoderMa(nn.Module):
         x: MaskedTensor = datadict["x"]
         datadict["x"] = MaskedTensor(self.x_encoder(x.data[..., 0].long()),
                                      x.mask)
-        A: MaskedTensor = datadict["A"]
-        datadict["A"] = MaskedTensor(self.ea_encoder(A.data.long()), A.mask)
+        A = datadict["A"]
+        if isinstance(A, MaskedTensor):
+            datadict["A"] = MaskedTensor(self.ea_encoder(A.data.long()),
+                                         A.mask)
+        else:   # the SD mode's sparse batched adjacency
+            datadict["A"] = A.tuplewiseapply(
+                lambda v: self.ea_encoder(v.reshape(v.shape[0]).long()))
         X: MaskedTensor = datadict["X"]
         datadict["X"] = MaskedTensor(self.tuplefeat_encoder(X.data.long()),
                                      X.mask)
         return datadict
 
 
+def _ma_convdict(aggr: str, mlp: dict, mode: str,
+                 generator: torch.Generator):
+    """Dense conv factories (the ported part of the JAX package's
+    ``_ma_convdict``): "DD" aggregates by sum only, "SD" by ``aggr``;
+    PPGN is dense whatever the mode."""
+    a = aggr if mode == "SD" else "sum"
+    return {
+        "NGNN": lambda d: Conv.NGNNConv(d, d, a, mode, mlp,
+                                        generator=generator),
+        "PPGN": lambda d: Conv.PPGNConv(d, d, a, "DD", mlp,
+                                        generator=generator),
+    }
+
+
 class MaModel(nn.Module):
     """Masked-dense HOGNN for graph regression (reference
-    example/zinc.py:155-222).  Only the PPGN conv in "DD" mode, in f32,
-    is ported; ``dtype``, ``remat`` and ``mode="SD"`` raise.
+    example/zinc.py:155-222).  The NGNN conv in "DD" and "SD" mode and
+    the PPGN conv are ported; ``remat`` raises.
+
+    ``mode="DD"`` takes the dense adjacency of ``collate_dense``, ``"SD"``
+    the sparse one of ``collate_dense(denseadj=False)``.  ``dtype`` is the
+    compute dtype (``torch.bfloat16``: bf16 activations and products over
+    f32 parameters, the JAX model's ``dtype``, ``--bf16`` of
+    ``example/zinc_tpu.py``): the node, tuple and adjacency features are
+    cast to it after the encoder, the MLPs and tuple-init layers compute in
+    it, and the prediction comes out in f32.
 
     forward(datadict) -> (num_graphs, num_tasks)
     """
 
-    def __init__(self, conv: str = "PPGN", num_tasks: int = 1,
+    def __init__(self, conv: str = "NGNN", num_tasks: int = 1,
                  num_layer: int = 6, hiddim: int = 128, aggr: str = "sum",
                  npool: str = "mean", lpool: str = "max",
                  cpool: str = "mean", residual: bool = True,
                  outlayer: int = 2, mlp: Optional[dict] = None,
-                 mode: str = "DD", dtype=None, remat: bool = False, *,
-                 generator: torch.Generator):
+                 mode: str = "DD", dtype: Optional[torch.dtype] = None,
+                 remat: bool = False, *, generator: torch.Generator):
         super().__init__()
-        if conv != "PPGN":
-            raise NotImplementedError(
-                f"conv {conv!r} is not ported yet; available: ['PPGN']")
-        if mode != "DD":
-            raise NotImplementedError(f"mode {mode!r} is not ported yet")
-        if dtype is not None or remat:
-            raise NotImplementedError(
-                "MaModel dtype and remat are not ported yet")
+        if mode not in ("DD", "SD"):
+            raise ValueError(f"mode must be 'DD' or 'SD', got {mode!r}")
+        if remat:
+            raise NotImplementedError("MaModel remat is not ported yet")
         mlp = dict(mlp or {})
         mlp.setdefault("numlayer", 1)
         mlp.setdefault("tailact", True)
+        if dtype is not None:
+            mlp.setdefault("dtype", dtype)
+        convdict = _ma_convdict(aggr, mlp, mode, generator)
+        if conv not in convdict:
+            raise NotImplementedError(
+                f"conv {conv!r} is not ported yet; available: "
+                f"{sorted(convdict)}")
+        self.dtype = dtype
         self.hiddim = hiddim
         self.residual = residual
 
-        self.lin_tupleinit0 = make_linear(hiddim, hiddim, generator=generator)
-        self.lin_tupleinit1 = make_linear(hiddim, hiddim, generator=generator)
-        # the dense mode aggregates by sum only (_ma_convdict)
+        self.lin_tupleinit0 = make_linear(hiddim, hiddim, generator=generator,
+                                          dtype=dtype)
+        self.lin_tupleinit1 = make_linear(hiddim, hiddim, generator=generator,
+                                          dtype=dtype)
         self.subggnns = nn.ModuleList(
-            [Conv.PPGNConv(hiddim, hiddim, "sum", "DD", mlp,
-                           generator=generator) for _ in range(num_layer)])
+            [convdict[conv](hiddim) for _ in range(num_layer)])
         self.npool_op = MaOperator.OpPooling(1, pool=npool)
         self.lpool_op = TensorOp.OpPoolingSubg2D("D", lpool)
         head = {k: v for k, v in mlp.items()
@@ -263,8 +295,15 @@ class MaModel(nn.Module):
 
     def forward(self, datadict: Dict) -> torch.Tensor:
         datadict = self.data_encoder(datadict)
-        A = datadict["A"]
-        X = self.tupleinit(datadict["X"], datadict["x"])
+        A, X, x = datadict["A"], datadict["X"], datadict["x"]
+        if self.dtype is not None:
+            x = MaskedTensor(x.data.to(self.dtype), x.mask)
+            X = MaskedTensor(X.data.to(self.dtype), X.mask)
+            if isinstance(A, MaskedTensor):
+                A = MaskedTensor(A.data.to(self.dtype), A.mask)
+            elif A.values is not None:
+                A = dataclasses.replace(A, values=A.values.to(self.dtype))
+        X = self.tupleinit(X, x)
         for conv in self.subggnns:
             tX = conv(A, X, datadict)
             X = X.add(tX, True) if self.residual else tX
@@ -274,11 +313,12 @@ class MaModel(nn.Module):
         return self.pred_lin(h_graph).float()
 
 
-def make_ma_model(conv: str = "PPGN", seed: int = 0,
+def make_ma_model(conv: str = "NGNN", seed: int = 0,
                   device: DeviceLike = None, **kw) -> MaModel:
     """Build a :class:`MaModel` with weights drawn from a
     ``torch.Generator`` seeded with ``seed``, on ``device`` (the CUDA card
-    unless the caller passes ``device="cpu"``)."""
+    unless the caller passes ``device="cpu"``); ``conv`` defaults to the
+    JAX package's "NGNN"."""
     dev = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
     return MaModel(conv, generator=generator, **kw).to(dev)

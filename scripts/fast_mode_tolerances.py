@@ -15,7 +15,10 @@ second run also takes the card's bf16-input projections
 (``honn.conv.fast_projection``), which the layer takes only for CUDA
 tensors.  Runs: NGNN-f32 (exact), NGNN-f32fast, NGNN-bf16fast (bf16
 compute), NGAT-f32fast; all at 6x128, batch 128.  About two minutes on
-eight cores.
+eight cores.  ``NGNNDD-bf16`` (not run by default) does the same for
+NGNN-DD 6x128 with bf16 compute on the batches that ``chip_smoke.py``
+holds the card against the CPU on (``DENSE_CUT_STEPS`` batches of
+``DENSE_CUT`` graphs), the basis of its ``DENSE_BF16_TRAIN_RTOL``.
 """
 
 import argparse
@@ -83,6 +86,20 @@ def card_projections(conv_module):
     return forward
 
 
+def dense_cut_batches():
+    """The cut batches on which ``chip_smoke.py`` holds the NGNN dense
+    paths' card losses against the CPU's."""
+    import chip_smoke as cs
+    from pygho_tpu_torch.hodata import (MaDataloader, Mapretransform,
+                                        spdsampler, synthetic_zinc)
+
+    pre = Mapretransform(partial(spdsampler, hop=cs.DENSE_HOP))
+    datas = [pre(g) for g in synthetic_zinc("train", seed=cs.SEED)]
+    loader = MaDataloader(datas, cs.DENSE_CUT, shuffle=True, drop_last=True,
+                          seed=0)
+    return list(loader)[:cs.DENSE_CUT_STEPS]
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=10)
@@ -115,19 +132,23 @@ def main():
         conv, mode = run.split("-")
         exact = not mode.endswith("fast")
         dtype = torch.bfloat16 if mode.startswith("bf16") else None
+        if conv == "NGNNDD":
+            train = partial(cs.dense_train_run, conv="NGNN", dtype=dtype)
+            steps, data = cs.DENSE_CUT_STEPS, dense_cut_batches()
+        else:
+            train = partial(cs.train_run, conv=conv, dtype=dtype)
+            steps, data = args.steps, batches
         set_fused_math(exact)
         try:
             t0 = time.perf_counter()
-            base, _ = cs.train_run("cpu", batches, args.steps, conv=conv,
-                                   dtype=dtype)
+            base, _ = train("cpu", data, steps)
             orig, reordered = reordered_batchnorm(utils_module)
             orig_conv = conv_module.NGATConv.forward
             utils_module.BatchNorm.forward = reordered
             if conv == "NGAT" and not exact:
                 conv_module.NGATConv.forward = card_projections(conv_module)
             try:
-                other, _ = cs.train_run("cpu", batches, args.steps,
-                                        conv=conv, dtype=dtype)
+                other, _ = train("cpu", data, steps)
             finally:
                 utils_module.BatchNorm.forward = orig
                 conv_module.NGATConv.forward = orig_conv

@@ -1,13 +1,18 @@
 """Where a training step of the PyTorch / CUDA port goes, on one CUDA card.
 
     python3 scripts/trace_train_gpu.py
-        [--model ngnn-ss|ngat-ss|ppgn-dd|giant] [--steps 5] [--out trace_out]
+        [--model ngnn-ss|ngat-ss|ppgn-dd|ngnn-dd|ngnn-dd-bf16|ngnn-sd|
+                 ngnn-sd-fused|giant] [--steps 5] [--out trace_out]
 
 Trains NGNN-SS 6x128 (weights from seed 0, AdamW at lr 1e-3, through
 ``make_sparse_steps``), with ``--model ngat-ss`` NGAT-SS 6x128 and with
 ``--model ppgn-dd`` PPGN-DD 6x128, both as ``chip_smoke.py`` configures
 them (AdamW at lr 1e-3 and 4.5e-3, through ``make_sparse_steps`` and
-``make_dense_steps``), on 128-graph batches of ``synthetic_zinc("train")``;
+``make_dense_steps``), with ``--model ngnn-dd`` NGNN-DD 6x128 as
+``chip_smoke.py`` configures it (AdamW at lr 1e-2), ``ngnn-dd-bf16`` the
+same with bf16 compute, ``ngnn-sd`` in SD mode on the densify route (K5)
+and ``ngnn-sd-fused`` on the fused route (K1), on 128-graph batches of
+``synthetic_zinc("train")``;
 with ``--model giant`` the giant graph of ``chip_smoke.py`` (200 x 100
 communities, hiddim 128, 3 layers, SGD at lr 1e-4, through
 ``parallel/giant.py``), whose "eval forward" is its loss; and prints:
@@ -21,7 +26,7 @@ communities, hiddim 128, 3 layers, SGD at lr 1e-4, through
 3. a ``torch.profiler`` trace of ``--steps`` parity-mode steps: the
    operators and kernels that take the most device time, the device's
    busy share of the traced wall time, and the share of the port's own
-   kernels (K1, K4, K5 or K3);
+   kernels (K1, K4, K5 or K3; K1 on NGNN-SD's fused route);
 4. for NGAT-SS, one layer's four attention projections (forward and
    backward) beside K4's four roles on the same inputs: the device time
    of their kernels (``torch.profiler``) and the time between CUDA events,
@@ -52,7 +57,8 @@ KEY = "X___X___1___A___0"
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("ngnn-ss", "ngat-ss", "ppgn-dd",
-                                        "giant"),
+                                        "ngnn-dd", "ngnn-dd-bf16", "ngnn-sd",
+                                        "ngnn-sd-fused", "giant"),
                     default="ngnn-ss")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="trace_out")
@@ -86,16 +92,23 @@ def main():
         to_dict = hodata.batch_to_sparse_dict
         kernel = {"NGNN": "spspmm_sum_kernel",
                   "NGAT": "seg_att_kernel"}[conv]
-    elif args.model == "ppgn-dd":
+    elif args.model != "giant":
+        conv = args.model[:4].upper()
+        mode = args.model[5:7].upper()
+        dtype = torch.bfloat16 if args.model.endswith("bf16") else None
+        plans = args.model.endswith("fused")
         pre = hodata.Mapretransform(partial(hodata.spdsampler,
                                             hop=chip_smoke.DENSE_HOP))
         datas = [pre(g) for g in hodata.synthetic_zinc("train")]
         batches = list(hodata.MaDataloader(datas, 128, shuffle=True,
-                                           drop_last=True, seed=0))
-        model = chip_smoke.dense_model(dev)
-        opt = models.make_optimizer(model, chip_smoke.DENSE_LR)
+                                           drop_last=True, seed=0,
+                                           denseadj=mode == "DD",
+                                           build_plans=plans))
+        model = chip_smoke.dense_model(dev, conv, mode, dtype)
+        opt = models.make_optimizer(model, chip_smoke.DENSE_CFG[conv][1])
         train_step, _ = models.make_dense_steps()
-        to_dict, kernel = hodata.batch_to_dense_dict, "cw_bmm_kernel"
+        to_dict = hodata.batch_to_dense_dict
+        kernel = "spspmm_sum_kernel" if plans else "cw_bmm_kernel"
     else:
         from pygho_tpu_torch.parallel import (build_giant_graph_plan,
                                               init_giant_params,

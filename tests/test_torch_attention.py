@@ -545,9 +545,13 @@ def test_ngat_training_trajectory_matches_jax():
     jm, keys = _jax_model(L, H)
     start = jax_params(jm)
     jpre = JxSppretransform(partial(JxKhopSampler, hop=3), [""], keys)
+    # workers=1: the JAX loader collates batches 2.. on a thread pool
+    # that grows shared shape buckets as it goes
+    # (pygho_tpu/hodata/loader.py:104-125), so its padding would depend
+    # on thread timing; the port's loader collates in order
     jdl = JxSpDataloader([jpre(g) for g in jx_synthetic_zinc(
         "train", n_graphs=G)], BS, keys, shuffle=True, drop_last=True,
-        seed=3, device_put=False, prefetch=0)
+        seed=3, device_put=False, prefetch=0, workers=1)
     jstep, _ = jx_training.make_sparse_steps()
     jopt = jx_training.make_optimizer(jm, LR)
     jm.train()

@@ -273,9 +273,13 @@ def test_ma_dataloader_matches_jax(seed):
     the JAX loader's batches, array for array."""
     pdl = MaDataloader(_datas(True, n_graphs=20), 8, shuffle=True,
                        drop_last=True, seed=seed)
+    # workers=1: the JAX loader collates batches 2.. on a thread pool
+    # that grows shared shape buckets as it goes
+    # (pygho_tpu/hodata/loader.py:104-125), so its padding would depend
+    # on thread timing; the port's loader collates in order
     jdl = JxMaDataloader(_datas(False, n_graphs=20), 8, shuffle=True,
                          drop_last=True, seed=seed, device_put=False,
-                         prefetch=0)
+                         prefetch=0, workers=1)
     assert len(pdl) == len(jdl) == 2
     for _ in range(2):
         pbs, jbs = list(pdl), list(jdl)
@@ -360,9 +364,13 @@ def test_dense_training_trajectory_matches_jax():
     pm = make_ma_model("PPGN", num_layer=L, hiddim=H, mlp=dict(MLPD),
                        device="cpu", **cfg)
     load_jax_params(pm, _flat(jm))
+    # workers=1: the JAX loader collates batches 2.. on a thread pool
+    # that grows shared shape buckets as it goes
+    # (pygho_tpu/hodata/loader.py:104-125), so its padding would depend
+    # on thread timing; the port's loader collates in order
     jdl = JxMaDataloader(_datas(False, n_graphs=G), BS, shuffle=True,
                          drop_last=True, seed=3, device_put=False,
-                         prefetch=0)
+                         prefetch=0, workers=1)
     pdl = MaDataloader(_datas(True, n_graphs=G), BS, shuffle=True,
                        drop_last=True, seed=3)
     jstep, _ = jx_training.make_dense_steps()
@@ -389,16 +397,20 @@ def test_dense_training_trajectory_matches_jax():
 
 
 def test_dense_refusals():
-    """What the slice does not port raises, loudly."""
-    with pytest.raises(NotImplementedError):
-        make_ma_model("NGNN", device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_ma_model("PPGN", num_layer=1, hiddim=8, mode="SD", device="cpu")
+    """What the dense slices do not port raises, loudly: a conv outside
+    the table, a mode other than DD and SD, ``remat``, and an aggregation
+    other than the sum on a dense adjacency."""
+    from pygho_tpu_torch.honn import tensorop
+
+    with pytest.raises(NotImplementedError, match=r"\['NGNN', 'PPGN'\]"):
+        make_ma_model("SSWL", device="cpu")
+    with pytest.raises(ValueError):
+        make_ma_model("PPGN", num_layer=1, hiddim=8, mode="SS", device="cpu")
     with pytest.raises(NotImplementedError):
         make_ma_model("PPGN", num_layer=1, hiddim=8, remat=True,
                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        MaDataloader([], 8, denseadj=False)
+    with pytest.raises(ValueError, match="only sum"):
+        tensorop.OpMessagePassingOnSubg2D("DD", "max")
     t = MaskedTensor(torch.zeros(1, 2, 2, 3), torch.ones(1, 2, 2,
                                                           dtype=torch.bool))
     for call in (lambda: t.diag([1, 2]), lambda: t.catvalue(t, True),

@@ -699,9 +699,14 @@ def test_fast_training_trajectory_matches_jax(fast):
     keys = jx_keys(jm)
     start = jax_params(jm)
     jpre = JxSppretransform(partial(JxKhopSampler, hop=3), [""], keys)
+    # workers=1: the JAX loader collates batches 2.. on a thread pool
+    # that grows shared shape buckets as it goes
+    # (pygho_tpu/hodata/loader.py:104-125), so its padding would depend
+    # on thread timing; the port's loader collates in order
     jdl = JxSpDataloader([jpre(g) for g in jx_synthetic_zinc(
         "train", n_graphs=G)], BS, keys, shuffle=True, drop_last=True,
-        seed=3, device_put=False, prefetch=0, build_plans=True, plan_dim=H)
+        seed=3, device_put=False, prefetch=0, workers=1, build_plans=True,
+        plan_dim=H)
     jstep, _ = jx_training.make_sparse_steps()
     jopt = jx_training.make_optimizer(jm, LR)
     jm.train()

@@ -206,9 +206,13 @@ def test_shuffled_loader_matches_jax(seed):
     seed=s)``: the same graphs in the same batches as the JAX loader."""
     n, bs = 22, 5
     jpre = JxSppretransform(partial(JxKhopSampler, hop=2), [""], [KEY])
+    # workers=1: the JAX loader collates batches 2.. on a thread pool
+    # that grows shared shape buckets as it goes
+    # (pygho_tpu/hodata/loader.py:104-125), so its padding would depend
+    # on thread timing; the port's loader collates in order
     jdl = JxSpDataloader([jpre(g) for g in jx_synthetic_zinc(
         "train", n_graphs=n)], bs, [KEY], shuffle=True, drop_last=True,
-        seed=seed, device_put=False, prefetch=0)
+        seed=seed, device_put=False, prefetch=0, workers=1)
     pre = Sppretransform(partial(KhopSampler, hop=2), [""], [KEY])
     pdl = SpDataloader([pre(g) for g in synthetic_zinc("train",
                                                         n_graphs=n)],
@@ -345,9 +349,13 @@ def test_training_trajectory_matches_jax():
     keys = jx_keys(jm)
     start = _flat(jm)
     jpre = JxSppretransform(partial(JxKhopSampler, hop=3), [""], keys)
+    # workers=1: the JAX loader collates batches 2.. on a thread pool
+    # that grows shared shape buckets as it goes
+    # (pygho_tpu/hodata/loader.py:104-125), so its padding would depend
+    # on thread timing; the port's loader collates in order
     jdl = JxSpDataloader([jpre(g) for g in jx_synthetic_zinc(
         "train", n_graphs=G)], BS, keys, shuffle=True, drop_last=True,
-        seed=3, device_put=False, prefetch=0)
+        seed=3, device_put=False, prefetch=0, workers=1)
     jstep, _ = jx_training.make_sparse_steps()
     jopt = jx_training.make_optimizer(jm, LR)
     jm.train()
