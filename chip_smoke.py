@@ -84,18 +84,35 @@ Phases, each printing its wall seconds:
 19. NGNN-SD training: phase 16 in SD mode on the densify route (K5's
    three roles) and on the fused route (``MaDataloader(build_plans=True)``:
    K1's three f32 roles six times a step and no K5), each step's time
-   printed for both.
+   printed for both;
+20. giant fast training: phase 10 under ``set_fused_math(False)`` with the
+   ``overlapped_fused`` strategy (``giant_graph_gpu.py --strategy
+   overlapped_fused --fast``): three ``window_spspmm_fwd_f32fast`` and
+   three ``window_spspmm_dx_f32fast`` launches a step and nothing else,
+   finite losses, a bitwise-identical second run, the CPU's losses (plain
+   versions, fast mode) over ``GIANT_FAST_CPU_STEPS`` steps within
+   ``GIANT_RTOL``; and one step under ``overlapped`` with the same
+   flag, which launches the exact roles, as JAX's XLA contraction ignores
+   the flag;
+21. ZINC entry point: ``example/zinc_gpu.py``'s run in this process,
+   NGNN-SS 6x128 with the converged row's flags (``--fused``) on 1,024
+   synthetic training graphs for two epochs with val and test MAE: the K1
+   ``*_f32fast`` roles and nothing else, the jsonl records, finite MAE,
+   the converged record's keys, and a checkpoint of epoch 1, restored,
+   giving epoch 2's loss bit for bit.
 
 The kernels phase holds every fast and bf16 variant of K1 and K4 (the
 roles of phase 3 with operands stored in f32 or bf16, in the exact or the
-fast mode) and K5's bf16 variant (its three roles on bf16 operands, the
-cotangent of dA and dX in f32) the same way, bit for bit against its
+fast mode), K3's fast variant (its three roles at the giant shape and on
+the edge cases, in the fast mode) and K5's bf16 variant (its three roles
+on bf16 operands, the cotangent of dA and dX in f32) the same way, bit
+for bit against its
 plain version, holds ``SpspmmSum``'s, ``SegmentAttention``'s and
-``ChannelwiseBmm``'s gradients in those modes against autograd through
-the plain versions, times each variant beside its bound and its plain
-version (K5's also beside ``torch.einsum`` on its operands), and checks
-that a variant of K1 or K4 whose launch is refused raises and counts
-nothing.
+``ChannelwiseBmm``'s and ``WindowSpspmmSum``'s gradients in those modes
+against autograd through the plain versions, times each variant beside
+its bound and its plain version (K5's also beside ``torch.einsum`` on its
+operands), and checks that a variant of K1, K3 or K4 whose launch is
+refused raises and counts nothing.
 
 It prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -104,6 +121,7 @@ exits non-zero without the last line.  It imports nothing of JAX.
 
 import contextlib
 import copy
+import dataclasses
 import faulthandler
 import json
 import math
@@ -235,6 +253,26 @@ GIANT_CPU_STEPS = 10
 # other sparse paths' TRAIN_RTOL of 1e-3); 1e-4 relative leaves a margin of
 # about 100 over f32 rounding of such a mean
 GIANT_RTOL = 1e-4
+# the giant graph in the fast mode (overlapped_fused, set_fused_math(False),
+# phase 20): the card's and the CPU's f32 values differ in their last bits
+# (matmuls and sums in other orders), and an operand that lies within them
+# of a bf16 rounding boundary rounds the other way on one side, moving its
+# term by 2^-8; the CPU run with every layer's matmul summed in another
+# order moves ten steps' losses by at most 2.1e-7 in this mode, against
+# 1.0e-7 in the exact mode (scripts/fast_mode_tolerances.py --runs
+# GIANT-f32,GIANT-f32fast), well inside GIANT_RTOL, which holds this phase
+# too.  The CPU repeats the first three of the card's ten steps (about 3 s
+# each at this size)
+GIANT_FAST_CPU_STEPS = 3
+# the ZINC entry point (phase 21): example/zinc_gpu.py's flags of the
+# converged NGNN-SS row (runs/converged/NGNN_sparse.s0.json) on a cut
+# training set, two epochs
+ZINC_ARGS = ["--sparse", "--conv", "NGNN", "--fused", "--lr", "1e-2",
+             "--minlr", "8.4e-5", "--wd", "4.9e-5", "--cosT", "26", "--K",
+             "0.0049", "--K2", "4.33e-6", "--normparam", "0.194",
+             "--mlplayer", "2", "--outlayer", "4"]
+ZINC_NTRAIN = 1024
+ZINC_EPOCHS = 2
 # K5 vs its plain version on the card: the same rounded f32 products summed
 # in the same order, so they should agree exactly; the tolerance of each
 # output is K5_RTOL * sum |A[b,i,k,d] * X[b,k,j,d]| over its k.  The bf16
@@ -275,14 +313,16 @@ BF16_TRAIN_RTOL = 5e-3
 NGAT_FAST_TRAIN_RTOL = 1e-2
 # the variants held against their plain versions beside the f32 ones
 FAST_VARIANTS = ((None, False), ("bf16", True), ("bf16", False))
-# kernels that no main path of this script launches: K3's dA role (the
-# giant step takes parameter gradients only, as JAX's does), and the bf16
+# kernels that no main path of this script launches: K3's dA role in both
+# modes (the giant step takes parameter gradients only, as JAX's does),
+# and the bf16
 # variants that keep exact products (a bf16 model in exact mode, which the
 # JAX package runs without --fused; the smoke trains the bf16 model in the
 # fast mode of --fused --bf16) and K4's bf16 variants (NGAT's attention
 # runs in f32 whatever the compute dtype, as the JAX layer's does): each
 # is held against its plain version in the kernels phase
-UNLAUNCHED = {"window_spspmm_da_f32", "spspmm_sum_fwd_bf16",
+UNLAUNCHED = {"window_spspmm_da_f32", "window_spspmm_da_f32fast",
+              "spspmm_sum_fwd_bf16",
               "spspmm_sum_dx_bf16", "spspmm_sum_da_bf16",
               "seg_att_fwd_bf16", "seg_att_dw_bf16", "seg_att_dc_bf16",
               "seg_att_dv_bf16", "seg_att_fwd_bf16fast",
@@ -1518,20 +1558,22 @@ def giant_instance():
     return build(GIANT["communities"], GIANT["csize"], GIANT["hiddim"])
 
 
-def check_k3(inst, dev, rng, flush):
-    """K3's three roles at the giant graph's shapes (hop-1 triples of the
-    RCM-ordered 200x100 community graph, D = 128) and on edge cases,
-    against their plain version on the card; ``WindowSpspmmSum``'s
-    gradients, with both operands requiring grad, against autograd through
-    the plain version; and the roles' times beside K1's three roles on the
-    same triples and row pointers.  Returns the roles' lines of the
-    report."""
+def check_k3(inst, dev, rng, flush, exact=True):
+    """K3's three roles, in the variant of the math mode ``exact``, at the
+    giant graph's shapes (hop-1 triples of the RCM-ordered 200x100
+    community graph, D = 128) and on edge cases, bit for bit against their
+    plain version on the card; ``WindowSpspmmSum``'s gradients, with both
+    operands requiring grad, against autograd through the plain version;
+    for the fast variant a refused launch; and the roles' times beside
+    K1's three roles (the same variant) on the same triples and row
+    pointers.  Returns the roles' lines of the report."""
     import numpy as np
     import torch
 
     from pygho_tpu_torch.kernels import spspmm_sum as k1
     from pygho_tpu_torch.kernels import window_spspmm as k3
 
+    variant = {r: r.variant(torch.float32, exact) for r in k3.ROLES}
     acd, nnz, ne = inst["acd"], inst["nnz_pad"], inst["Av"].shape[0]
     n_t = inst["tup"].shape[1]
     D = GIANT["hiddim"]
@@ -1557,25 +1599,31 @@ def check_k3(inst, dev, rng, flush):
     def compare(role, U, V, plan):
         """Kernel vs plain version: (max abs error, max error over its
         tolerance, bitwise equal); raises where a row with no triples is
-        not 0."""
-        out = k3.contract(role, U, V, plan)
-        ref = k1.contract_plain(U, V, plan.tuv, plan.out_rows)
-        mag = k1.contract_plain(U.abs(), V.abs(), plan.tuv, plan.out_rows)
+        not 0, or where the bits differ (both sum each row's rounded
+        products in triple order)."""
+        out = k3.contract(role, U, V, plan, exact)
+        ref = k1.contract_plain(U, V, plan.tuv, plan.out_rows, exact)
+        mag = k1.contract_plain(U.abs(), V.abs(), plan.tuv, plan.out_rows,
+                                exact)
         sync()
         if out.numel() == 0:
             return 0.0, 0.0, True
         empty = torch.bincount(plan.tuv[0].long(),
                                minlength=plan.out_rows) == 0
         if bool((out[empty] != 0).any()):
-            raise AssertionError(f"{role.NAME} wrote a non-zero empty row")
+            raise AssertionError(f"{variant[role].NAME} wrote a non-zero "
+                                 f"empty row")
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{variant[role].NAME} is not bit for bit "
+                                 f"equal to its plain version")
         diff = (out - ref).abs()
         return (float(diff.max()),
                 float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max()),
                 bool(torch.equal(out, ref)))
 
-    def held(what, err, ratio, same):
+    def held(what, err, ratio, same, rtol=KERNEL_RTOL):
         print(f"{what}: max abs err {err:.3e}, {ratio:.3f} of the tolerance "
-              f"{KERNEL_RTOL:g} * sum |terms|; bitwise equal to the plain "
+              f"{rtol:g} * sum |terms|; bitwise equal to the plain "
               f"version: {same}")
         if not ratio <= 1.0:
             raise AssertionError(f"{what} disagrees with the plain version: "
@@ -1584,7 +1632,8 @@ def check_k3(inst, dev, rng, flush):
     errs = {}
     for role, args in main.items():
         errs[role], ratio, same = compare(role, *args)
-        held(f"{role.NAME} giant shape ({args[2].tuv.shape[1]} triples, "
+        held(f"{variant[role].NAME} giant shape ({args[2].tuv.shape[1]} "
+             f"triples, "
              f"out {(args[2].out_rows, D)})", errs[role], ratio, same)
 
     # edge cases, for every role: short rows (0 to 5 triples) with empty
@@ -1624,63 +1673,99 @@ def check_k3(inst, dev, rng, flush):
             plan = k3.build_chunk_plan(tuv_c, o_rows, 400, v_rows)
             Uc = case_operand(400, Dc, offset)
             Vc = case_operand(v_rows, Dc, offset)
-            held(f"{role.NAME} edge case {name} ({plan.n_warps} warps)",
+            held(f"{variant[role].NAME} edge case {name} ({plan.n_warps} "
+                 f"warps)",
                  *compare(role, Uc, Vc, plan.to(dev)))
 
     # WindowSpspmmSum's gradients against autograd through the plain
-    # version, both operands requiring grad (so the dA role runs)
+    # version, both operands requiring grad (so the dA role runs); in fast
+    # mode the kernel rounds the cotangent and each term, autograd through
+    # the plain version neither: FAST_GRAD_RTOL, as for K1
+    rtol = KERNEL_RTOL if exact else FAST_GRAD_RTOL
     W = operand(nnz, n_t)
-    for mod in k3.ROLES:
+    for mod in k3.ROLES + k3.FAST_ROLES:
         mod.launches = 0
     Xk, Ak = X.clone().requires_grad_(), A.clone().requires_grad_()
-    (k3.WindowSpspmmSum.apply(Xk, Ak, plans) * W).sum().backward()
-    ran = {mod.NAME: mod.launches for mod in k3.ROLES}
-    if set(ran.values()) != {1}:
+    (k3.WindowSpspmmSum.apply(Xk, Ak, plans, exact) * W).sum().backward()
+    ran = {mod.NAME: mod.launches for mod in k3.ROLES + k3.FAST_ROLES}
+    want = {mod.NAME: int(mod in variant.values())
+            for mod in k3.ROLES + k3.FAST_ROLES}
+    if ran != want:
         raise AssertionError(f"WindowSpspmmSum launched {ran}")
     Xp, Ap = X.clone().requires_grad_(), A.clone().requires_grad_()
-    (k1.contract_plain(Xp, Ap, plans[0].tuv, nnz) * W).sum().backward()
+    (k1.contract_plain(Xp, Ap, plans[0].tuv, nnz, exact) * W).sum() \
+        .backward()
     with torch.no_grad():
-        mags = (k1.contract_plain(W.abs(), A.abs(), plans[1].tuv, nnz),
-                k1.contract_plain(X.abs(), W.abs(), plans[2].tuv, ne))
+        mags = (k1.contract_plain(W.abs(), A.abs(), plans[1].tuv, nnz,
+                                  exact),
+                k1.contract_plain(X.abs(), W.abs(), plans[2].tuv, ne,
+                                  exact))
     for what, got, ref, mag in (("grad_X", Xk.grad, Xp.grad, mags[0]),
                                 ("grad_A", Ak.grad, Ap.grad, mags[1])):
         diff = (got - ref).abs()
-        held(f"WindowSpspmmSum {what} vs autograd through the plain version",
-             float(diff.max()),
-             float((diff / (KERNEL_RTOL * mag).clamp_min(1e-30)).max()),
-             bool(torch.equal(got, ref)))
+        ratio = float((diff / (rtol * mag).clamp_min(1e-30)).max())
+        held(f"WindowSpspmmSum ({mode_name(None, exact)}) {what} vs autograd "
+             f"through the plain version", float(diff.max()), ratio,
+             bool(torch.equal(got, ref)), rtol)
+
+    if dev.type == "cuda" and not exact:
+        # a plan with no warps: the entry point refuses the launch
+        for role, (U, V, plan) in main.items():
+            bad = dataclasses.replace(plan, warp_row=plan.warp_row[:1])
+            before = variant[role].launches
+            try:
+                k3.contract(role, U, V, bad, exact)
+            except RuntimeError as err:
+                if variant[role].NAME not in str(err):
+                    raise AssertionError(f"the failure names another "
+                                         f"kernel: {err}") from err
+            else:
+                raise AssertionError(f"{variant[role].NAME}: a refused "
+                                     f"launch did not raise")
+            if variant[role].launches != before:
+                raise AssertionError(f"{variant[role].NAME}: a refused "
+                                     f"launch was counted")
+            print(f"{variant[role].NAME}: a refused launch raises and "
+                  f"counts nothing")
 
     # K1's three roles on the same triples and row pointers: the yardstick
     report, k1_lines = [], []
+    # (stored operands, f32 operands read, terms) a triple: all f32
+    reads = {k3.FWD: (2, 0, 1), k3.DX: (1, 1, 1), k3.DA: (1, 1, 1)}
     for role, r1 in zip(k3.ROLES, k1.ROLES):
         U, V, plan = main[role]
+        name, name1 = variant[role].NAME, r1.variant(torch.float32,
+                                                     exact).NAME
         k1_args = (U, V, plan.tuv, plan.rowptr)
-        k1_out = k1.contract(r1, *k1_args)
-        k1_same = bool(torch.equal(k1_out, k3.contract(role, U, V, plan)))
-        ms = time_ms(lambda: k3.contract(role, U, V, plan), flush)
-        k1_ms = time_ms(lambda: k1.contract(r1, *k1_args), flush)
+        k1_out = k1.contract(r1, *k1_args, exact)
+        k1_same = bool(torch.equal(k1_out,
+                                   k3.contract(role, U, V, plan, exact)))
+        ms = time_ms(lambda: k3.contract(role, U, V, plan, exact), flush)
+        k1_ms = time_ms(lambda: k1.contract(r1, *k1_args, exact), flush)
         torch.use_deterministic_algorithms(False)
-        plain_ms = time_ms(lambda: k1.contract_plain(U, V, plan.tuv,
-                                                     plan.out_rows), flush)
+        plain_ms = time_ms(lambda: k1.contract_plain(
+            U, V, plan.tuv, plan.out_rows, exact), flush)
         torch.use_deterministic_algorithms(True)
-        warm_ms = time_ms(lambda: k3.contract(role, U, V, plan),
+        warm_ms = time_ms(lambda: k3.contract(role, U, V, plan, exact),
                           lambda: torch.cuda._sleep(1_000_000))
-        k1_warm_ms = time_ms(lambda: k1.contract(r1, *k1_args),
+        k1_warm_ms = time_ms(lambda: k1.contract(r1, *k1_args, exact),
                              lambda: torch.cuda._sleep(1_000_000))
-        bound_ms, bound_by, nbytes, flops = k1_bound(plan.tuv,
-                                                     plan.out_rows, D)
-        print(f"{role.NAME} timing at the giant shape (L2 flushed before "
+        bound_ms, bound_by, nbytes, flops = k1_bound(
+            plan.tuv, plan.out_rows, D,
+            ops=rounded_ops(reads[role], torch.float32, exact, base=2))
+        print(f"{name} timing at the giant shape (L2 flushed before "
               f"each launch, median of 30): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms; K1 {r1.NAME} on the same triples "
+              f"{plain_ms:.4f} ms; K1 {name1} on the same triples "
               f"{k1_ms:.4f} ms (bitwise equal to K3: {k1_same}); bound "
               f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, {flops} f32 "
               f"operations at 67 TFLOP/s); inputs left in L2: K3 "
               f"{warm_ms:.4f} ms, K1 {k1_warm_ms:.4f} ms")
-        k1_lines.append({"name": r1.NAME, "ms": k1_ms, "warm_ms": k1_warm_ms,
-                         "k3": role.NAME, "k3_ms": ms, "k3_warm_ms": warm_ms,
+        k1_lines.append({"name": name1, "ms": k1_ms, "warm_ms": k1_warm_ms,
+                         "k3": name, "k3_ms": ms, "k3_warm_ms": warm_ms,
                          "bound_ms": bound_ms, "bitwise": k1_same})
-        report.append({"name": role.NAME, "route": "cuda",
-                       "source": role.SOURCE, "replaces": role.REPLACES,
+        report.append({"name": name, "route": "cuda",
+                       "source": variant[role].SOURCE,
+                       "replaces": variant[role].REPLACES,
                        "launches": None, "max_abs_err": errs[role],
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": None})
@@ -1710,21 +1795,29 @@ def giant_train_run(device, inst, plan, steps, per_step=None):
     return [float(x) for x in losses], model, (step, Xv, Av, y)
 
 
-def train_giant(card, dev, inst):
-    """The giant graph trains on the card through ``parallel/giant.py``:
-    three K3 forward and three dX launches a step and nothing else, finite
-    losses, two runs bitwise identical, the CPU's losses within
-    GIANT_RTOL; then ms a step, the plan's host time and the peak device
-    memory.  Returns the launches of the first run."""
+def train_giant(card, dev, inst, strategy="overlapped", exact=True):
+    """The giant graph trains on the card through ``parallel/giant.py``
+    under the JAX strategy ``strategy``, its steps built in the math mode
+    ``exact``: three launches a step of K3's forward role and three of
+    its dX role, in the mode's variant (fast only under
+    ``overlapped_fused``), and nothing else, finite losses, two runs
+    bitwise identical, the CPU's losses within GIANT_RTOL; then
+    ms a step, the plan's host time and the peak device memory.  In fast
+    mode also a step under ``overlapped`` with the same flag, which must
+    launch the exact roles.  Returns the launches of the first run."""
     import torch
 
     from pygho_tpu_torch.kernels import KERNELS
     from pygho_tpu_torch.kernels import window_spspmm as k3
     from pygho_tpu_torch.parallel import build_giant_graph_plan
 
+    fast = not exact and strategy == "overlapped_fused"
+    cpu_steps = GIANT_FAST_CPU_STEPS if fast else GIANT_CPU_STEPS
+    name = f"giant graph ({strategy}, {mode_name(None, not fast)})"
     t0 = time.perf_counter()
     plan = build_giant_graph_plan(inst["acd_pad"], inst["tupleid"],
                                   inst["nnz_pad"], inst["n"], 1,
+                                  strategy=strategy,
                                   n_edge_rows=inst["Av"].shape[0],
                                   plan_dim=GIANT["hiddim"])
     plan_s = time.perf_counter() - t0
@@ -1743,27 +1836,30 @@ def train_giant(card, dev, inst):
     for mod in KERNELS:
         mod.launches = 0
     t0 = time.perf_counter()
-    losses, model, (step, Xv, Av, y) = giant_train_run(
-        dev, inst, plan, GIANT_STEPS, read)
+    with math_mode(exact):
+        losses, model, (step, Xv, Av, y) = giant_train_run(
+            dev, inst, plan, GIANT_STEPS, read)
     sync()
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = dict(counts[-1])
     per_step = [{k: c[k] - (counts[i - 1][k] if i else 0) for k in c}
                 for i, c in enumerate(counts)]
-    print(f"trained {GIANT_STEPS} steps in {run_s:.3f} s (the first "
+    print(f"{name}: trained {GIANT_STEPS} steps in {run_s:.3f} s (the first "
           f"includes moving the plan); losses {[f'{x:.7f}' for x in losses]}; "
           f"kernel launches {launches}; peak device memory "
           f"{peak / 2 ** 30:.3f} GiB ({peak} bytes)")
     want = {mod.NAME: 0 for mod in KERNELS}
-    want[k3.FWD.NAME] = want[k3.DX.NAME] = GIANT["num_layer"]
+    for role in (k3.FWD, k3.DX):
+        want[role.variant(torch.float32, not fast).NAME] = GIANT["num_layer"]
     for i, c in enumerate(per_step):
         if c != want:
             raise AssertionError(f"step {i} launched {c}, expected {want}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
 
-    again, model2, _ = giant_train_run(dev, inst, plan, GIANT_STEPS)
+    with math_mode(exact):
+        again, model2, _ = giant_train_run(dev, inst, plan, GIANT_STEPS)
     same = again == losses and all(
         torch.equal(p, q) for p, q in zip(model.parameters(),
                                           model2.parameters()))
@@ -1778,20 +1874,159 @@ def train_giant(card, dev, inst):
                       reps=10, warmup=2, settle=False)
     del model
 
+    if not exact:
+        # the same flag under a strategy whose JAX contraction ignores it
+        other = build_giant_graph_plan(inst["acd_pad"], inst["tupleid"],
+                                       inst["nnz_pad"], inst["n"], 1,
+                                       strategy="overlapped",
+                                       n_edge_rows=inst["Av"].shape[0])
+        for mod in KERNELS:
+            mod.launches = 0
+        with math_mode(exact):
+            giant_train_run(dev, inst, other, 1)
+        sync()
+        ran = {mod.NAME: mod.launches for mod in KERNELS if mod.launches}
+        want_exact = {k3.FWD.NAME: GIANT["num_layer"],
+                      k3.DX.NAME: GIANT["num_layer"]}
+        print(f"one step under overlapped with the fast flag: launched "
+              f"{ran} (the exact roles)")
+        if ran != want_exact:
+            raise AssertionError(f"overlapped under the fast flag launched "
+                                 f"{ran}, expected {want_exact}")
+        for mod in KERNELS:
+            mod.launches = 0
+
     t0 = time.perf_counter()
-    cpu_losses, _, _ = giant_train_run("cpu", inst, plan, GIANT_CPU_STEPS)
+    with math_mode(exact):
+        cpu_losses, _, _ = giant_train_run("cpu", inst, plan, cpu_steps)
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
-    print(f"card vs CPU (plain versions), the first {GIANT_CPU_STEPS} steps "
+    print(f"card vs CPU (plain versions), the first {cpu_steps} steps "
           f"in {time.perf_counter() - t0:.3f} s on the CPU: max relative "
           f"loss difference {rel:.3e} (tolerance {GIANT_RTOL:g}); CPU losses "
           f"{[f'{x:.7f}' for x in cpu_losses]}")
     if not rel <= GIANT_RTOL:
         raise AssertionError(f"card and CPU losses differ by {rel}")
-    print(f"giant graph {GIANT['communities']}x{GIANT['csize']}, hiddim "
+    print(f"{name} {GIANT['communities']}x{GIANT['csize']}, hiddim "
           f"{GIANT['hiddim']}, {GIANT['num_layer']} layers on {card}: "
           f"{step_ms:.3f} ms a step between CUDA events (median of 10); "
           f"plan {plan_s:.3f} s on the host; peak device memory "
           f"{peak / 2 ** 30:.3f} GiB")
+    return launches
+
+
+def zinc_entry(card, dev):
+    """``example/zinc_gpu.py``'s run in this process: NGNN-SS 6x128 with
+    ``--fused`` (the converged row's flags, ``ZINC_ARGS``) on
+    ``ZINC_NTRAIN`` synthetic training graphs for ``ZINC_EPOCHS`` epochs
+    with val and test MAE, its records and caches in a temporary
+    directory.  Checks: the K1 ``*_f32fast`` roles and no other kernel,
+    dX and dA six times a training step; the jsonl records (padding, then
+    an epoch and a telemetry record an epoch); finite losses and MAE; the
+    converged record's keys (those of
+    ``runs/converged/NGNN_sparse.s0.json``); and a checkpoint written
+    after epoch 1 and restored, with the training loader's shuffle state
+    and buckets as they were then, gives epoch 2's loss bit for bit.
+    Returns the launches of the run."""
+    import tempfile
+
+    import torch
+
+    from pygho_tpu_torch.kernels import KERNELS
+    from pygho_tpu_torch.kernels import spspmm_sum as k1
+    from pygho_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    sys.path.insert(0, str(REPO / "example"))
+    import zinc_gpu
+
+    with open(REPO / "runs" / "converged" / "NGNN_sparse.s0.json") as f:
+        row = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        args = zinc_gpu.parse_args(
+            ZINC_ARGS + ["--ntrain", str(ZINC_NTRAIN), "--epochs",
+                         str(ZINC_EPOCHS), "--cache-dir", str(tmp / "cache"),
+                         "--log-dir", str(tmp / "logs"),
+                         "--converged-record", str(tmp / "rec.json")])
+        saved = {}
+
+        def on_epoch(epoch, run):
+            if epoch == 1:
+                save_checkpoint(str(tmp / "ck"), run.model, run.opt, epoch)
+                saved["rng"] = copy.deepcopy(run.loaders["train"].rng)
+                saved["buckets"] = copy.deepcopy(
+                    run.loaders["train"].buckets)
+            saved["run"] = run
+
+        sync()
+        for mod in KERNELS:
+            mod.launches = 0
+        t0 = time.perf_counter()
+        rec = zinc_gpu.run_once(args, 0, on_epoch)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = {mod.NAME: mod.launches for mod in KERNELS}
+        run = saved["run"]
+        steps = ZINC_EPOCHS * len(run.loaders["train"])
+        ran = {k: v for k, v in launches.items() if v}
+        fast = {r.variant(torch.float32, False).NAME for r in k1.ROLES}
+        print(f"zinc_gpu.py NGNN-SS 6x128 --fused, {ZINC_NTRAIN} training "
+              f"graphs, {ZINC_EPOCHS} epochs ({steps} steps) in "
+              f"{run_s:.3f} s, preprocessing included; epoch times "
+              f"{[f'{x:.3f}' for x in run.epoch_times]} s; losses "
+              f"{run.losses}; best val MAE {rec['best_val_mae']} at epoch "
+              f"{rec['best_val_epoch']}, test MAE "
+              f"{rec['tst_mae_at_best_val']}; kernel launches {ran}")
+        if set(ran) != fast:
+            raise AssertionError(f"the ZINC run launched {ran}, expected "
+                                 f"the K1 roles {sorted(fast)}")
+        for role in (k1.DX, k1.DA):
+            name = role.variant(torch.float32, False).NAME
+            if ran[name] != 6 * steps:
+                raise AssertionError(f"{name} launched {ran[name]} times "
+                                     f"in {steps} steps")
+        if not all(math.isfinite(x) for x in run.losses) or not all(
+                rec[k] is not None and math.isfinite(rec[k])
+                for k in ("best_val_mae", "tst_mae_at_best_val")):
+            raise AssertionError(f"non-finite loss or MAE: {run.losses}, "
+                                 f"{rec}")
+        with open(tmp / "logs" / "zinc_gpu_sp_NGNN_h3_r0.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        types = [r["type"] for r in recs]
+        if types != ["padding"] + ["epoch", "telemetry"] * ZINC_EPOCHS:
+            raise AssertionError(f"jsonl records {types}")
+        if [r["trn_loss"] for r in recs if r["type"] == "epoch"] \
+                != run.losses:
+            raise AssertionError("the epoch records do not hold the losses")
+        with open(tmp / "rec.json") as f:
+            written = json.load(f)
+        if set(written) - {"device"} != set(row) \
+                or set(written["hps"]) != set(row["hps"]):
+            raise AssertionError(f"the converged record's keys "
+                                 f"{sorted(written)} are not the row's")
+        print(f"jsonl records {types}; converged record keys as "
+              f"runs/converged/NGNN_sparse.s0.json, with device "
+              f"{written.get('device')}")
+
+        # epoch 2 again, from the checkpoint of epoch 1
+        with math_mode(False):
+            if restore_checkpoint(str(tmp / "ck"), run.model, run.opt) != 1:
+                raise AssertionError("the checkpoint is not epoch 1's")
+            loader = run.loaders["train"]
+            loader.rng = saved["rng"]
+            loader.buckets = saved["buckets"]
+            again = run.train_epoch()
+        sync()
+        print(f"epoch 2 from the checkpoint of epoch 1: loss {again!r} "
+              f"against {run.losses[1]!r}: bitwise identical "
+              f"{again == run.losses[1]}")
+        if again != run.losses[1]:
+            raise AssertionError("the restored run's epoch 2 differs")
+        trained = len(run.loaders["train"]) * args.bs
+        print(f"ZINC entry point (NGNN-SS 6x128, f32fast) on {card}: "
+              f"{trained / run.epoch_times[-1]:.1f} graphs/s trained in "
+              f"epoch {ZINC_EPOCHS} ({run.epoch_times[-1]:.3f} s for "
+              f"{trained} graphs, collation included)")
+        del run, saved
     return launches
 
 
@@ -2116,6 +2351,7 @@ def main():
     print(f"giant graph built in {time.perf_counter() - t1:.3f} s on the "
           f"host (RCM, hop-1 tuples and triples, inputs)")
     report += check_k3(giant, dev, rng, flush_buf.zero_)
+    report += check_k3(giant, dev, rng, flush_buf.zero_, exact=False)
     done("kernels", t0)
 
     t0 = phase("serving")
@@ -2211,16 +2447,26 @@ def main():
     sd_fused_launches, _ = train_dense(card, dev, "NGNN", "SD", plans=True)
     done("NGNN-SD training", t0)
 
+    t0 = phase("giant fast training")
+    giant_fast_launches = train_giant(card, dev, giant, "overlapped_fused",
+                                      exact=False)
+    done("giant fast training", t0)
+
+    t0 = phase("ZINC entry point")
+    zinc_launches = zinc_entry(card, dev)
+    done("ZINC entry point", t0)
+
     # launches: each main path's run (NGNN serving and training, dense
     # serving and training, NGAT serving and training, giant-graph
-    # training, the fast and bf16 runs, and the NGNN dense runs), each
-    # counted from 0 just before the path and read just after
+    # training, the fast and bf16 runs, the NGNN dense runs, the giant
+    # graph's fast training and the ZINC entry point), each counted from 0
+    # just before the path and read just after
     runs = (launches, train_launches, dense_launches, dense_train_launches,
             ngat_launches, ngat_train_launches, giant_launches,
             fast_launches, fast_train_launches, bf16_train_launches,
             ngat_fast_launches, ngnn_dd_launches, ngnn_dd_train_launches,
             ngnn_bf16_train_launches, ngnn_sd_launches, sd_densify_launches,
-            sd_fused_launches)
+            sd_fused_launches, giant_fast_launches, zinc_launches)
     for line in report:
         line["launches"] = sum(run[line["name"]] for run in runs)
     unlaunched = [line["name"] for line in report if not line["launches"]

@@ -4,6 +4,7 @@ one card.
 
 Run: python example/giant_graph_gpu.py [--cpu] [--communities 200
      --csize 100 --hiddim 128 --num_layer 3 --steps 10]
+     [--strategy overlapped_fused --fast]
 
 It builds a community-structured graph, relabels it in reverse
 Cuthill-McKee order, builds the hop-1 tuples and their contraction's
@@ -13,7 +14,10 @@ unless ``--cpu`` is given; with no card and no ``--cpu`` it raises.  The
 graph and the inputs are drawn from one ``numpy.random.default_rng(0)`` in
 the JAX script's order, so both scripts train on the same data (the
 parameters come from each package's own generator).  ``--devices`` takes
-only 1: the multi-card strategies are not ported.
+only 1: the multi-card strategies are not ported.  ``--fast`` sets the
+fast numerics mode (``set_fused_math(False)``), which, as in the JAX
+script, reaches only the ``overlapped_fused`` strategy's contraction: K3's
+``*_f32fast`` roles on the card.
 """
 
 import argparse
@@ -91,7 +95,11 @@ def main():
                                  "overlapped_fused"],
                         default="overlapped",
                         help="the JAX script's boundary exchange; on one "
-                             "card every strategy is the same plan")
+                             "card every strategy is the same plan, and "
+                             "only overlapped_fused follows --fast")
+    parser.add_argument("--fast", action="store_true",
+                        help="bf16 fast math in the fused kernel "
+                             "(overlapped_fused only)")
     args = parser.parse_args()
     if args.devices != 1:
         parser.error("--devices: only 1 is ported (one card); the "
@@ -99,9 +107,13 @@ def main():
 
     import torch
 
+    from pygho_tpu_torch.kernels import set_fused_math
     from pygho_tpu_torch.parallel import (build_giant_graph_plan,
                                           init_giant_params,
                                           make_giant_graph_step)
+
+    if args.fast:
+        set_fused_math(False)   # read when the step is built
 
     device = torch.device("cpu") if args.cpu else torch.device("cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -122,7 +134,9 @@ def main():
                                   n_edge_rows=inst["Av"].shape[0],
                                   plan_dim=args.hiddim)
     fwd, dx, da = plan.contraction
-    print(f"plan ({args.strategy}, one card): {plan.B} tuple rows; "
+    fast = args.fast and args.strategy == "overlapped_fused"
+    print(f"plan ({args.strategy}, one card, "
+          f"{'fast' if fast else 'exact'} math): {plan.B} tuple rows; "
           f"{fwd.tuv.shape[1]} triples; warps: forward {fwd.n_warps}, dX "
           f"{dx.n_warps}, dA {da.n_warps} ({time.perf_counter() - t0:.1f}s)")
 

@@ -2,13 +2,18 @@
 port (``pygho_tpu_torch``): the workload of ``example/minimal_tpu.py``.
 
 Run: python example/minimal_gpu.py [--cpu] [--epochs N] [--fused]
+     [--ckpt DIR]
 
 It trains on the CUDA card unless ``--cpu`` is given; with no card and no
 ``--cpu`` it raises.  ``--fused`` trains in the fast numerics mode of the
 JAX script's ``--fused`` (``set_fused_math(False)``: bf16 fast math in the
 message-passing kernel, K1's ``*_f32fast`` variants on the card).
 Preprocessing runs in this process.  Each epoch prints one JSON line with
-the fields of the JAX package's ``MetricsLogger.log_epoch``.
+the fields of the JAX package's ``MetricsLogger.log_epoch``.  ``--ckpt
+DIR`` saves the model and the optimizer after every epoch to
+``DIR/step_<epoch>`` and, where DIR holds a checkpoint, resumes after the
+latest (``pygho_tpu_torch.utils``; the layout of ``minimal_tpu.py
+--ckpt``, whose orbax checkpoints the port cannot read).
 """
 
 import argparse
@@ -31,6 +36,8 @@ parser.add_argument("--hop", type=int, default=3)
 parser.add_argument("--fused", action="store_true",
                     help="route message passing through the fast variants "
                          "of the message-passing kernel (bf16 fast math)")
+parser.add_argument("--ckpt", default="", help="checkpoint dir (save per "
+                    "epoch; resumes if one exists)")
 args = parser.parse_args()
 
 import torch
@@ -70,6 +77,17 @@ opt = make_optimizer(model, 1e-3)
 train_step, eval_step = make_sparse_steps()
 on_card = next(model.parameters()).device.type == "cuda"
 
+start_epoch = 1
+if args.ckpt:
+    import os
+
+    from pygho_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    if os.path.isdir(args.ckpt) and any(
+            d.startswith("step_") for d in os.listdir(args.ckpt)):
+        start_epoch = restore_checkpoint(args.ckpt, model, opt) + 1
+        print(f"resumed from epoch {start_epoch - 1}")
+
 
 def train(dl):
     model.train()
@@ -86,7 +104,7 @@ def evaluate(dl):
 
 
 best_val, tst_score = float("inf"), float("inf")
-for epoch in range(1, args.epochs + 1):
+for epoch in range(start_epoch, args.epochs + 1):
     t1 = time.time()
     loss = train(loaders["train"])
     t2 = time.time()
@@ -100,6 +118,8 @@ for epoch in range(1, args.epochs + 1):
                       "val_time": t3 - t2, "mem_gb": mem, "trn_loss": loss,
                       "val_mae": val, "tst_mae": tst_score, "lr": None}),
           flush=True)
+    if args.ckpt:
+        save_checkpoint(args.ckpt, model, opt, step=epoch)
     if math.isnan(loss) or math.isnan(val):
         break
 

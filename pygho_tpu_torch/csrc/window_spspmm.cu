@@ -64,6 +64,19 @@
 //   multiply-add), so every role equals its plain version, and K1, bit for
 //   bit, and a run gives the same bits every time.
 //
+// Variants (the JAX kernel's _strip_math, strip_spspmm.py:653-686): every
+// role is one template over the math mode, with the same walk and the same
+// f32 sums in the same order.  f32: as above.  f32 fast (exact=False, the
+// giant graph's --fast runs): U[u] and V[v] are rounded to bf16, their
+// product is formed in f32 (exact for two bf16 values) and rounded to bf16
+// once more before it is added; in dX and dA the cotangent g is one of the
+// operands, so it is rounded too, as _bwd_rule passes exact to both.  The
+// roundings are K1's (chunk_walk::round_bf16, round-to-nearest-even, as
+// Tensor.to(torch.bfloat16)), so each fast role equals its plain version
+// and K1's f32fast role bit for bit.  They are made in the loop of adds,
+// after every gather of the group is issued, where K1 found that they
+// cost nothing; the bytes moved are the f32 variant's.
+//
 // Plain C interface (no PyTorch headers), loaded with ctypes: one entry
 // point per role, each launching its own instance of the kernel, so a
 // profile tells the roles apart.  A launch goes on the caller's stream,
@@ -72,22 +85,34 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chunk_walk.cuh"
+
 namespace {
+
+using chunk_walk::round_bf16;
+using chunk_walk::term;
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kInFlight = 8;   // triples whose gathers a warp issues at once
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__device__ __forceinline__ float4 mul_add(float4 acc, float4 u, float4 v) {
-  acc.x = __fadd_rn(acc.x, __fmul_rn(u.x, v.x));
-  acc.y = __fadd_rn(acc.y, __fmul_rn(u.y, v.y));
-  acc.z = __fadd_rn(acc.z, __fmul_rn(u.z, v.z));
-  acc.w = __fadd_rn(acc.w, __fmul_rn(u.w, v.w));
-  return acc;
+// acc + u * v, in fast mode with u, v and their product rounded to bf16
+template <bool FAST>
+__device__ __forceinline__ float mul_add(float acc, float u, float v) {
+  if constexpr (FAST) {
+    u = round_bf16(u);
+    v = round_bf16(v);
+  }
+  return __fadd_rn(acc, term<FAST>(__fmul_rn(u, v)));
 }
 
-__device__ __forceinline__ float mul_add(float acc, float u, float v) {
-  return __fadd_rn(acc, __fmul_rn(u, v));
+template <bool FAST>
+__device__ __forceinline__ float4 mul_add(float4 acc, float4 u, float4 v) {
+  acc.x = mul_add<FAST>(acc.x, u.x, v.x);
+  acc.y = mul_add<FAST>(acc.y, u.y, v.y);
+  acc.z = mul_add<FAST>(acc.z, u.z, v.z);
+  acc.w = mul_add<FAST>(acc.w, u.w, v.w);
+  return acc;
 }
 
 __device__ __forceinline__ float4 zero_of(float4) {
@@ -99,10 +124,10 @@ __device__ __forceinline__ float zero_of(float) { return 0.f; }
 enum Role { kForward, kDX, kDA };
 
 // T is float4 (width = D / 4 vectors a row) or float (width = D); the role
-// only names the instance.  U and V are the role's operands, u and v its
+// only names the instance, FAST is the math mode.  U and V are the role's operands, u and v its
 // triples' indices in output-row order, rowptr the row pointer of their
 // output rows and warp_row[w] : warp_row[w + 1] the rows of warp w (1 to 32).
-template <typename T, Role role>
+template <typename T, Role role, bool FAST>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 window_spspmm_kernel(const T* __restrict__ U, const T* __restrict__ V,
                      const int* __restrict__ u, const int* __restrict__ v,
@@ -157,7 +182,7 @@ window_spspmm_kernel(const T* __restrict__ U, const T* __restrict__ V,
             ++ri;
             end = __shfl_sync(kFullMask, my_end, ri);
           }
-          if (active) acc = mul_add(acc, xu[q], xv[q]);
+          if (active) acc = mul_add<FAST>(acc, xu[q], xv[q]);
         }
       }
     }
@@ -173,7 +198,7 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <Role role>
+template <Role role, bool FAST>
 int launch(const float* U, const float* V, const int* u, const int* v,
            const int* rowptr, const int* warp_row, float* out,
            int64_t n_warps, int64_t D, void* stream) {
@@ -183,12 +208,12 @@ int launch(const float* U, const float* V, const int* u, const int* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)blocks), block(kWarpsPerBlock * 32);
   if (D % 4 == 0 && aligned16(U) && aligned16(V) && aligned16(out)) {
-    window_spspmm_kernel<float4, role><<<grid, block, 0, s>>>(
+    window_spspmm_kernel<float4, role, FAST><<<grid, block, 0, s>>>(
         reinterpret_cast<const float4*>(U), reinterpret_cast<const float4*>(V),
         u, v, rowptr, warp_row, reinterpret_cast<float4*>(out), n_warps,
         D / 4);
   } else {
-    window_spspmm_kernel<float, role><<<grid, block, 0, s>>>(
+    window_spspmm_kernel<float, role, FAST><<<grid, block, 0, s>>>(
         U, V, u, v, rowptr, warp_row, out, n_warps, D);
   }
   return (int)cudaGetLastError();
@@ -203,18 +228,24 @@ int launch(const float* U, const float* V, const int* u, const int* v,
 // rows a warp); out: (out_rows, D) f32, written in full.  The plan is built
 // and checked on the host (build_chunk_plan).  Returns the
 // cudaGetLastError() of the launch (0 on success).
-#define WINDOW_ENTRY(NAME, ROLE)                                             \
+#define WINDOW_ENTRY(NAME, ROLE, FAST)                                       \
   extern "C" int NAME(const float* U, const float* V, const int* u,         \
                       const int* v, const int* rowptr, const int* warp_row, \
                       float* out, int64_t n_warps, int64_t D,               \
                       void* stream) {                                       \
-    return launch<ROLE>(U, V, u, v, rowptr, warp_row, out, n_warps, D,      \
-                        stream);                                            \
+    return launch<ROLE, FAST>(U, V, u, v, rowptr, warp_row, out, n_warps,   \
+                              D, stream);                                   \
   }
 
 // forward: out[a] += X[c] * A[d] over (a, c, d); U = X, V = A
-WINDOW_ENTRY(window_spspmm_fwd_f32, kForward)
+WINDOW_ENTRY(window_spspmm_fwd_f32, kForward, false)
 // dX: dX[c] += g[a] * A[d] over (c, a, d); U = g, V = A
-WINDOW_ENTRY(window_spspmm_dx_f32, kDX)
+WINDOW_ENTRY(window_spspmm_dx_f32, kDX, false)
 // dA: dA[d] += X[c] * g[a] over (d, c, a); U = X, V = g
-WINDOW_ENTRY(window_spspmm_da_f32, kDA)
+WINDOW_ENTRY(window_spspmm_da_f32, kDA, false)
+
+// the same roles in fast mode (every operand rounded to bf16 as it is
+// used, each product once more)
+WINDOW_ENTRY(window_spspmm_fwd_f32fast, kForward, true)
+WINDOW_ENTRY(window_spspmm_dx_f32fast, kDX, true)
+WINDOW_ENTRY(window_spspmm_da_f32fast, kDA, true)

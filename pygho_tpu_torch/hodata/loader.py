@@ -28,10 +28,27 @@ from .sp_data import collate_sparse, parsekey, sp_datapreprocess
 
 class Buckets(dict):
     """Monotone bucket registry: a padded size can only grow, so batches
-    of one loader keep reusing a small set of shapes."""
+    of one loader keep reusing a small set of shapes.
+
+    Every growth is recorded in ``events`` as ``(key, old, new)``, as the
+    JAX package records it; ``drain_events()`` returns and clears them.
+    A growth after the first epoch means a late outlier batch made a new
+    padded shape: in JAX a recompile, here new allocations (the loaders
+    collate in the calling thread, so no lock is needed)."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self.events: List[Tuple[str, int, int]] = []
 
     def __setitem__(self, key, value):
-        super().__setitem__(key, max(value, self.get(key, 0)))
+        old = self.get(key, 0)
+        if value > old:
+            self.events.append((key, old, value))
+        super().__setitem__(key, max(value, old))
+
+    def drain_events(self) -> List[Tuple[str, int, int]]:
+        ev, self.events = self.events, []
+        return ev
 
 
 def Sppretransform(tuplesamplers, annotate: Sequence[str] = ("",),
@@ -258,3 +275,31 @@ class MaDataloader(_BaseLoader):
             masked_ndim = len(datas[0][f"tupleshape{self.annotate[0]}"]) + 1
             add_spmamm_triples(batch, self.plan_dims, masked_ndim)
         return batch
+
+
+def padding_stats(batch: Dict[str, Any]) -> Dict[str, Dict[str, float]]:
+    """Padding-waste report for one collated sparse batch (port of
+    ``pygho_tpu/hodata/loader.py:595``): ``{name: {"real": r, "padded":
+    p, "waste": 1 - r / p}}`` for the nodes, edges, tuples and every
+    ``<key>___acd`` array present.  The port's loaders strip the padded
+    triples (:func:`add_rowptr`), so an ``acd`` of their batches reports
+    no waste: the kernels read no padded triple."""
+    out: Dict[str, Dict[str, float]] = {}
+
+    def rec(name, real, padded):
+        real, padded = int(real), int(padded)
+        out[name] = {"real": real, "padded": padded,
+                     "waste": 1.0 - real / max(padded, 1)}
+
+    if "num_nodes" in batch:
+        rec("nodes", batch["num_nodes"], batch["x"].shape[0])
+    if "num_edges" in batch:
+        rec("edges", batch["num_edges"], batch["edge_index"].shape[1])
+    for k in batch:
+        if k.startswith("num_tuples"):
+            ann = k[len("num_tuples"):]
+            rec(f"tuples{ann}", batch[k], batch[f"tupleid{ann}"].shape[1])
+        if k.endswith(f"{KEYSEP}acd"):
+            a = np.asarray(batch[k][0])
+            rec(k, int(np.sum(a < PAD_INDEX)), a.shape[0])
+    return out

@@ -29,11 +29,23 @@ staged V windows in shared memory took 3.3x to 4.1x K1's time on the same
 triples (``PERF.md``); the kernel keeps its name and module so that
 reports and traces stay comparable.
 
+Each role comes in two variants, chosen by the math mode, as the JAX
+kernel's ``_strip_math`` computes them (``strip_spspmm.py:653-686``), on
+f32 operands in both (the JAX user, ``tuple_parallel.py:985-986``, casts
+them):
+
+- f32, exact (the base roles ``FWD``, ``DX``, ``DA``): f32 products
+  summed in f32;
+- f32, fast (``*_f32fast``, ``exact=False``): both operands rounded to
+  bf16, their product formed in f32 and rounded to bf16 again, the terms
+  summed in f32.  In dX and dA the cotangent is an operand and is rounded
+  too, as ``_bwd_rule`` (``:1124-1132``) passes ``exact`` to both.
+
 The raw wrapper :func:`contract` launches a role's kernel for tensors on a
 CUDA device and runs the plain PyTorch version (K1's
 :func:`~pygho_tpu_torch.kernels.spspmm_sum.contract_plain` over the plan's
-triples) for tensors on the CPU; on a CUDA tensor it launches the kernel
-or raises.  It builds no autograd graph; :class:`WindowSpspmmSum` is the
+triples, in the same mode) for tensors on the CPU; on a CUDA tensor it
+launches the kernel of the mode's variant or raises.  It builds no autograd graph; :class:`WindowSpspmmSum` is the
 differentiable entry point.
 """
 
@@ -48,7 +60,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from .spspmm_sum import Role, contract_plain
+from .spspmm_sum import Role, add_variants, contract_plain
 
 SOURCE = "pygho_tpu_torch/csrc/window_spspmm.cu"
 # a warp's chunk: the rows whose first triple lies in one run of this many
@@ -67,6 +79,7 @@ DA = Role("window_spspmm_da_f32",
           "pygho_tpu/kernels/strip_spspmm.py:689 (_strip_kernel_pv, dA "
           "role on the pv dA plan, :1097; _bwd_rule :1130)", SOURCE)
 ROLES = (FWD, DX, DA)
+FAST_ROLES = add_variants(ROLES, (("f32fast", torch.float32, False),))
 
 _PLAN_ARRAYS = ("tuv", "rowptr", "warp_row")
 
@@ -173,7 +186,7 @@ def build_chunk_plans(acd: np.ndarray, x_rows: int, a_rows: int,
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("window_spspmm")
-    for role in ROLES:
+    for role in ROLES + FAST_ROLES:
         fn = getattr(lib, role.NAME)
         if fn.argtypes is None:
             fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 2 \
@@ -214,14 +227,16 @@ def _check(U, V, plan: ChunkPlan):
 
 
 def contract(role: Role, U: torch.Tensor, V: torch.Tensor,
-             plan: ChunkPlan) -> torch.Tensor:
+             plan: ChunkPlan, exact: bool = True) -> torch.Tensor:
     """One role of K3, ``out[t] = sum over (t, u, v) of U[u] * V[v]``, as
     an ``(plan.out_rows, D)`` float32 tensor, on ``plan``'s chunks (on the
-    device of ``U``; rows with no triples come out 0)."""
+    device of ``U``; rows with no triples come out 0), in the variant of
+    ``role`` that ``exact`` selects (module docstring)."""
     _check(U, V, plan)
+    role = role.variant(torch.float32, exact)
     D = U.shape[1]
     if U.device.type == "cpu":
-        return contract_plain(U, V, plan.tuv, plan.out_rows)
+        return contract_plain(U, V, plan.tuv, plan.out_rows, role.EXACT)
     if U.device.type != "cuda":
         raise ValueError(f"no kernel for device {U.device}")
     out = torch.empty(plan.out_rows, D, dtype=torch.float32,
@@ -245,17 +260,19 @@ ChunkPlans = Tuple[ChunkPlan, ChunkPlan, ChunkPlan]
 
 
 class WindowSpspmmSum(torch.autograd.Function):
-    """Differentiable K3: ``WindowSpspmmSum.apply(X, A, plans)``,
-    ``out[a] = sum over (a, c, d) of X[c] * A[d]``.
+    """Differentiable K3: ``WindowSpspmmSum.apply(X, A, plans, exact)``,
+    ``out[a] = sum over (a, c, d) of X[c] * A[d]``, ``exact`` True unless
+    given.
 
     Forward: the forward role.  Backward: the dX role gives ``grad_X``
     and the dA role gives ``grad_A``, each run only where
-    ``ctx.needs_input_grad`` asks for it (the counterpart of
-    ``fused_spspmm_strip``'s ``_bwd_rule`` on pv plans).  The incoming
-    gradient is taken in f32."""
+    ``ctx.needs_input_grad`` asks for it, in the same math mode (the
+    counterpart of ``fused_spspmm_strip``'s ``_bwd_rule`` on pv plans).
+    The incoming gradient is taken in f32; in fast mode the dX and dA
+    roles round it to bf16 as they read it."""
 
     @staticmethod
-    def forward(ctx, X, A, plans: ChunkPlans):
+    def forward(ctx, X, A, plans: ChunkPlans, exact: bool = True):
         fwd, dx, da = plans
         if dx.out_rows != X.shape[0] or da.out_rows != A.shape[0] \
                 or dx.u_rows != fwd.out_rows or da.v_rows != fwd.out_rows:
@@ -263,7 +280,8 @@ class WindowSpspmmSum(torch.autograd.Function):
                              "plan and the operands")
         ctx.save_for_backward(X, A)
         ctx.plans = plans
-        return contract(FWD, X, A, fwd)
+        ctx.exact = exact
+        return contract(FWD, X, A, fwd, exact)
 
     @staticmethod
     @once_differentiable
@@ -271,6 +289,8 @@ class WindowSpspmmSum(torch.autograd.Function):
         X, A = ctx.saved_tensors
         _, dx, da = ctx.plans
         g = g.to(torch.float32).contiguous()
-        dX = contract(DX, g, A, dx) if ctx.needs_input_grad[0] else None
-        dA = contract(DA, X, g, da) if ctx.needs_input_grad[1] else None
-        return dX, dA, None
+        dX = contract(DX, g, A, dx, ctx.exact) \
+            if ctx.needs_input_grad[0] else None
+        dA = contract(DA, X, g, da, ctx.exact) \
+            if ctx.needs_input_grad[1] else None
+        return dX, dA, None, None

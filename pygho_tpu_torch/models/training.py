@@ -83,6 +83,18 @@ class AdamW(torch.optim.AdamW):
                          else lr, betas=(0.9, 0.999), eps=1e-8,
                          weight_decay=weight_decay)
 
+    def state_dict(self):
+        """The optimizer's state with the schedule's count, so that a
+        restored optimizer goes on from the same learning rate."""
+        state = super().state_dict()
+        state["count"] = self.count
+        return state
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count", 0))
+        super().load_state_dict(state_dict)
+
     def step(self, closure=None):
         if self.schedule is not None:
             lr = float(self.schedule(self.count))

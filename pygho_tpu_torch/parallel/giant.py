@@ -4,10 +4,18 @@ When one graph's tuple tensor is the whole workload, the JAX package
 shards its tuple rows over a mesh axis and trains an NGNN-style stack with
 the contraction split into local and boundary triples.  The port runs it
 on one card (P = 1): one shard, no boundary, so every strategy of the JAX
-package comes to the same plan, and the contraction of every layer runs on
-K3 (``kernels/window_spspmm.py``), the short-row gather, in its forward
+package comes to the same triples, and the contraction of every layer runs
+on K3 (``kernels/window_spspmm.py``), the short-row gather, in its forward
 and dX roles.  The strategies that exchange boundary rows between cards (P > 1)
 are not ported (``ROADMAP.md``, S7).
+
+The strategies still differ in their math mode.  In JAX only
+``overlapped_fused`` contracts on the Pallas kernel, which reads the fast
+flag (``get_fused_math``, ``tuple_parallel.py:981``); the others contract
+with XLA segment sums in f32 whatever the flag says
+(``_overlapped_contract``, ``_pool_contract``).  So the plan keeps its
+strategy, and only ``overlapped_fused`` runs K3's ``*_f32fast`` roles when
+the flag is off (:func:`make_giant_graph_step`).
 
 The stack, with the JAX package's math:
 
@@ -40,8 +48,10 @@ from ..kernels.window_spspmm import (ChunkPlans, WindowSpspmmSum,
                                      build_chunk_plans)
 
 # the JAX package's strategy names; at P = 1 each is one shard with no
-# boundary, so all build the same plan
+# boundary, so all build the same triples
 STRATEGIES = ("overlapped", "ring", "reduce_scatter", "overlapped_fused")
+# the strategy whose contraction follows the fast-math flag
+FUSED_STRATEGY = "overlapped_fused"
 
 
 @dataclasses.dataclass
@@ -53,13 +63,15 @@ class GiantGraphPlan:
     ``backward_orders``, each with its row pointer and warp chunks); ``root_ids``: int64
     ``(P * B,)``, the root node of each tuple row, ``n_nodes`` for a
     padded row; ``n_nodes``: the node count (output rows of the pooling);
-    ``P``: shards (1); ``B``: tuple rows a shard."""
+    ``P``: shards (1); ``B``: tuple rows a shard; ``strategy``: the JAX
+    strategy it was built for (which decides the math mode)."""
 
     contraction: ChunkPlans
     root_ids: object
     n_nodes: int
     P: int
     B: int
+    strategy: str = "overlapped"
 
     def to(self, device) -> "GiantGraphPlan":
         """The plan with its arrays as tensors on ``device``."""
@@ -83,7 +95,8 @@ def build_giant_graph_plan(acd: np.ndarray, tupleid: np.ndarray,
     padded with ``PAD_INDEX`` (``pad_acd``); ``tupleid``: the padded tuple
     indices ``(2, nnz_pad)``; ``n_edge_rows``: the rows of the edge values
     ``Av`` (default: the largest ``d`` + 1).  ``strategy`` takes the JAX
-    package's names, which all give the one-card plan; ``P > 1`` raises.
+    package's names, which all give the one-card triples, and is kept for
+    the math mode; ``P > 1`` raises.
     ``plan_dim`` is accepted for the JAX signature: the chunk plans do not
     depend on the width."""
     if strategy not in STRATEGIES:
@@ -108,7 +121,8 @@ def build_giant_graph_plan(acd: np.ndarray, tupleid: np.ndarray,
                          f"is {nnz_pad}")
     root = np.where(tid0 < PAD_INDEX, tid0, n_nodes).astype(np.int64)
     return GiantGraphPlan(contraction=contraction, root_ids=root,
-                          n_nodes=int(n_nodes), P=P, B=nnz_pad // P)
+                          n_nodes=int(n_nodes), P=P, B=nnz_pad // P,
+                          strategy=strategy)
 
 
 class GiantLinear(nn.Module):
@@ -137,12 +151,13 @@ class GiantNGNN(nn.Module):
         self.out = GiantLinear(d, 1)
 
     def forward(self, Xv: torch.Tensor, Av: torch.Tensor,
-                plan: GiantGraphPlan) -> torch.Tensor:
-        """Predictions of the ``plan.n_nodes`` nodes, ``(n_nodes,)``."""
+                plan: GiantGraphPlan, exact: bool = True) -> torch.Tensor:
+        """Predictions of the ``plan.n_nodes`` nodes, ``(n_nodes,)``, each
+        layer's contraction in the math mode ``exact``."""
         X = Xv
         for lin in self.layers:
             h = torch.relu(lin(X))
-            X = X + WindowSpspmmSum.apply(h, Av, plan.contraction)
+            X = X + WindowSpspmmSum.apply(h, Av, plan.contraction, exact)
         node_h = segment_reduce(X, plan.root_ids, plan.n_nodes, "sum")
         return self.out(node_h)[:, 0]
 
@@ -180,12 +195,20 @@ def make_giant_graph_step(plan: GiantGraphPlan, num_layer: int,
     parameters only, so a step runs the forward and dX roles of K3
     ``num_layer`` times each and its dA role never.
 
+    The math mode is read once, here, from :func:`get_fused_math`, as JAX
+    reads the flag when it traces the jitted step: set the flag before
+    building the step.  With the flag off and ``plan.strategy ==
+    "overlapped_fused"`` the contraction runs K3's ``*_f32fast`` roles;
+    every other strategy stays exact, as its JAX contraction does.
+
     Both run on ``device`` (the card unless ``device="cpu"``), where the
     plan is moved, in the parity mode (``set_parity_numerics``): f32
     without TF32 and deterministic algorithms, so two runs give the same
     bits."""
+    from ..kernels.numerics import get_fused_math
     from ..models.serve import set_parity_numerics
 
+    exact = get_fused_math() or plan.strategy != FUSED_STRATEGY
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -208,7 +231,7 @@ def make_giant_graph_step(plan: GiantGraphPlan, num_layer: int,
 
     def loss_fn(model, Xv, Av, y):
         check(model, Xv, Av, y)
-        se = (model(Xv, Av, plan) - y) ** 2
+        se = (model(Xv, Av, plan, exact) - y) ** 2
         if n_real is not None and n_real < plan.n_nodes:
             return se[:n_real].sum() / n_real
         return se.mean()

@@ -19,6 +19,11 @@ eight cores.  ``NGNNDD-bf16`` (not run by default) does the same for
 NGNN-DD 6x128 with bf16 compute on the batches that ``chip_smoke.py``
 holds the card against the CPU on (``DENSE_CUT_STEPS`` batches of
 ``DENSE_CUT`` graphs), the basis of its ``DENSE_BF16_TRAIN_RTOL``.
+``GIANT-f32`` and ``GIANT-f32fast`` (not run by default) train the giant
+graph of ``chip_smoke.py`` (``GIANT``, its plan under ``overlapped_fused``)
+the same way, the second time with every layer's matmul summed in another
+order (two halves of the input dim, then their sum), the basis of its
+``GIANT_RTOL`` in phase 20 (the fast mode); one to two minutes each.
 """
 
 import argparse
@@ -86,6 +91,35 @@ def card_projections(conv_module):
     return forward
 
 
+def split_matmul(giant_module):
+    """A GiantLinear forward that sums ``x @ w`` over two halves of the
+    input dim and adds them: the same products up to the last bits."""
+    def forward(self, x):
+        h = x.shape[-1] // 2
+        return (x[:, :h] @ self.w[:h] + x[:, h:] @ self.w[h:]) + self.b
+
+    return giant_module.GiantLinear.forward, forward
+
+
+def giant_run(cs, steps):
+    """``train(device, data, steps)`` for the giant graph under
+    ``overlapped_fused`` (its steps built in the mode set), with its
+    instance as ``data``."""
+    from pygho_tpu_torch.parallel import build_giant_graph_plan
+
+    inst = cs.giant_instance()
+    plan = build_giant_graph_plan(inst["acd_pad"], inst["tupleid"],
+                                  inst["nnz_pad"], inst["n"], 1,
+                                  strategy="overlapped_fused",
+                                  n_edge_rows=inst["Av"].shape[0])
+
+    def train(device, data, n):
+        losses, model, _ = cs.giant_train_run(device, data, plan, n)
+        return losses, model
+
+    return train, min(steps, cs.GIANT_STEPS), inst
+
+
 def dense_cut_batches():
     """The cut batches on which ``chip_smoke.py`` holds the NGNN dense
     paths' card losses against the CPU's."""
@@ -116,6 +150,7 @@ def main():
     from pygho_tpu_torch.honn import utils as utils_module
     from pygho_tpu_torch.kernels import set_fused_math
     from pygho_tpu_torch.models.serve import set_parity_numerics
+    from pygho_tpu_torch.parallel import giant as giant_module
 
     set_parity_numerics()
     pre = Sppretransform(partial(KhopSampler, hop=3), [""], [cs.KEY])
@@ -135,6 +170,8 @@ def main():
         if conv == "NGNNDD":
             train = partial(cs.dense_train_run, conv="NGNN", dtype=dtype)
             steps, data = cs.DENSE_CUT_STEPS, dense_cut_batches()
+        elif conv == "GIANT":
+            train, steps, data = giant_run(cs, args.steps)
         else:
             train = partial(cs.train_run, conv=conv, dtype=dtype)
             steps, data = args.steps, batches
@@ -144,14 +181,18 @@ def main():
             base, _ = train("cpu", data, steps)
             orig, reordered = reordered_batchnorm(utils_module)
             orig_conv = conv_module.NGATConv.forward
+            orig_lin, split = split_matmul(giant_module)
             utils_module.BatchNorm.forward = reordered
             if conv == "NGAT" and not exact:
                 conv_module.NGATConv.forward = card_projections(conv_module)
+            if conv == "GIANT":
+                giant_module.GiantLinear.forward = split
             try:
                 other, _ = train("cpu", data, steps)
             finally:
                 utils_module.BatchNorm.forward = orig
                 conv_module.NGATConv.forward = orig_conv
+                giant_module.GiantLinear.forward = orig_lin
         finally:
             set_fused_math(True)
         rel = [abs(a - b) / abs(b) for a, b in zip(other, base)]

@@ -286,9 +286,9 @@ def test_k3_roles_run_their_plans(role, monkeypatch):
     calls = []
     real = k3.contract
 
-    def spy(r, a, b, plan):
+    def spy(r, a, b, plan, *mode):
         calls.append((r.NAME, plan))
-        return real(r, a, b, plan)
+        return real(r, a, b, plan, *mode)
 
     monkeypatch.setattr(k3, "contract", spy)
     need = {"fwd": (False, False), "dx": (True, False), "da": (False, True)}

@@ -331,9 +331,9 @@ def _port_name(path):
 
 
 def test_training_trajectory_matches_jax():
-    """NGNN-SS, 2 layers x 32, 16 graphs in shuffled batches of 8, five
+    """NGNN-SS, 2 layers x 32, 16 graphs in shuffled batches of 8, ten
     AdamW steps at lr 1e-3 through the port's ``make_sparse_steps`` and
-    the JAX package's, from the same weights.
+    the JAX package's, from the same weights (parity bar 3's ten steps).
 
     Per-step losses: 1e-5 relative (f32, sums in another order).  Final
     parameters and BatchNorm statistics: 1e-5 abs + 1e-5 relative, except
@@ -341,10 +341,13 @@ def test_training_trajectory_matches_jax():
     norms.  Such a bias has a zero gradient in exact arithmetic (the norm
     subtracts the batch mean), so AdamW turns its rounding-level gradient
     into steps of up to about lr each, with signs that differ between two
-    correct implementations.  Those are held to what AdamW allows in five
-    steps: 1.25 * lr a step on each side (the bound of |m_hat| /
-    sqrt(v_hat) for t <= 5 with optax's betas)."""
-    L, H, G, BS, STEPS, LR = 2, 32, 16, 8, 5, 1e-3
+    correct implementations.  Those are held to what AdamW allows in ten
+    steps: 1.05 * lr a step on each side.  That is the bound of |m_hat| /
+    sqrt(v_hat) for t <= 10 with optax's betas (0.9, 0.999): by
+    Cauchy-Schwarz over the bias-corrected weights of the gradients it is
+    at most sqrt(sum_i w_i^2 / u_i), which grows with t and is 1.0431 at
+    t = 10."""
+    L, H, G, BS, STEPS, LR = 2, 32, 16, 8, 10, 1e-3
     jm = jx_make_sp_model("NGNN", num_layer=L, hiddim=H, mlp=dict(MLPD))
     keys = jx_keys(jm)
     start = _flat(jm)
@@ -388,7 +391,7 @@ def test_training_trajectory_matches_jax():
     params = dict(pm.named_parameters())
     targets = dict(params)
     targets.update(pm.named_buffers())
-    adam_bound = 2 * STEPS * 1.25 * LR
+    adam_bound = 2 * STEPS * 1.05 * LR
     checked = set()
     for path, ref in _flat(jm).items():
         name, transpose = _port_name(path)
