@@ -99,7 +99,24 @@ Phases, each printing its wall seconds:
    synthetic training graphs for two epochs with val and test MAE: the K1
    ``*_f32fast`` roles and nothing else, the jsonl records, finite MAE,
    the converged record's keys, and a checkpoint of epoch 1, restored,
-   giving epoch 2's loss bit for bit.
+   giving epoch 2's loss bit for bit;
+22. subgraph convs: SSWL, DSSGNN, GNNAK, SUN and PPGN-SS 6x128 (the model
+   settings of their converged rows, ``SPARSE``, weights from seed 0),
+   each served as phase 4 serves NGNN-SS (PPGN-SS's predictions within
+   ``SERVE_TOLS`` of the CPU's) and trained as phase 5 trains it (ten
+   AdamW steps at lr 1e-3 in the exact mode, twice, bitwise; the CPU's
+   losses over ``SUBGRAPH_CPU_STEPS`` steps within ``TRAIN_RTOL``),
+   with K1's f32 roles and no other kernel launched once a layer and
+   precompute key a batch or step: 12 for SSWL (its NGNN key and the
+   cross key ``X___A___1___X___0``), 6 for the others (PPGN-SS on the
+   2-FWL key ``X___X___1___X___0``); each prints the share of its raw-
+   graph serving time that the host's precompute takes.
+
+The kernels phase also holds K1's three f32 roles bit for bit against
+their plain version at SSWL's cross key (the edge values as the first
+operand, the dX role's rows the padded edges) and PPGN-SS's 2-FWL key
+(the largest K1 input of any path), with ``SpspmmSum``'s gradients, and
+times them beside ``k1_bound``.
 
 The kernels phase holds every fast and bf16 variant of K1 and K4 (the
 roles of phase 3 with operands stored in f32 or bf16, in the exact or the
@@ -139,6 +156,10 @@ REPO = Path(__file__).resolve().parent
 WATCHDOG_S = 900
 
 KEY = "X___X___1___A___0"
+# the cross-subgraph key (SSWL: the edge values are K1's first operand) and
+# the 2-FWL key (PPGN-SS: both operands tuple values)
+CROSS_KEY = "X___A___1___X___0"
+FWL_KEY = "X___X___1___X___0"
 SEED = 42                 # synthetic_zinc's seed, as in the JAX package
 MLPD = {"norm": "bn", "act": "silu", "dp": 0.0}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -174,9 +195,40 @@ SPARSE = {
                  mlp={"dp": 0.0, "norm": "bn", "act": "silu",
                       "normparam": 0.194, "numlayer": 2, "tailact": True}),
 }
-# the kernel source each sparse configuration's layers launch, six times a
-# batch for each role
-SPARSE_SOURCE = {"NGNN": "spspmm_sum.cu", "NGAT": "segment_attention.cu"}
+# the subgraph convs of phase 22, 6x128 as their converged JAX rows train
+# them (runs/converged/{conv}_sparse.json: KhopSampler(hop=3), batch 128,
+# aggr sum, cpool mean, mlplayer 2, outlayer 4, and each row's npool, lpool
+# and normparam), with example/zinc_tpu.py's MLP settings, trained at
+# TRAIN_LR in the exact mode
+SUBGRAPH_CONVS = ("SSWL", "DSSGNN", "GNNAK", "SUN", "PPGN")
+SPARSE.update({conv: dict(num_layer=6, hiddim=128, aggr="sum", npool="sum",
+                          lpool=lpool, cpool="mean", outlayer=4,
+                          mlp={"dp": 0.0, "norm": "bn", "act": "silu",
+                               "normparam": normparam, "numlayer": 2,
+                               "tailact": True})
+               for conv, lpool, normparam in (("SSWL", "mean", 0.22),
+                                              ("DSSGNN", "sum", 0.31),
+                                              ("GNNAK", "sum", 0.31),
+                                              ("SUN", "sum", 0.57),
+                                              ("PPGN", "mean", 0.185))})
+# the kernel source each sparse configuration's layers launch, for each
+# role once a layer and precompute key
+SPARSE_SOURCE = {"NGNN": "spspmm_sum.cu", "NGAT": "segment_attention.cu",
+                 **{conv: "spspmm_sum.cu" for conv in SUBGRAPH_CONVS}}
+# each sparse configuration's precompute keys, NGNN's KEY unless given
+SPARSE_KEYS = {"SSWL": [CROSS_KEY, KEY], "PPGN": [FWL_KEY]}
+# the CPU repeats this many of a subgraph conv's ten steps (PPGN-SS's plain
+# K1 gathers several times NGNN's triples a contraction)
+SUBGRAPH_CPU_STEPS = 2
+# served predictions, card vs CPU, where SERVE_TOL is below the f32
+# rounding of the configuration itself.  PPGN-SS: six layers of 2-FWL
+# products of two MLP outputs; with the seed-0 weights that the card
+# machine's PyTorch (2.11) draws, the CPU's own predictions move by 1.5e-4
+# when every Linear sums in f64 and by 2.7e-4 when each sums its input
+# halves apart (scripts/fast_mode_tolerances.py --runs SERVE-PPGN there;
+# NGNN-SS moves by 1.9e-6), and the card's lay 2.2e-4 from the CPU's
+# (H100); about twice the CPU's own largest movement
+SERVE_TOLS = {"PPGN": 5e-4}
 # the CPU repeats this many of NGAT's ten steps, each gathering and
 # exponentiating some 60,000 x 128 scores a layer with the plain K4
 NGAT_CPU_STEPS = 5
@@ -332,7 +384,15 @@ TRAIN_TOLS = {("NGNN", "f32"): (CPU_STEPS, TRAIN_RTOL),
               ("NGAT", "f32"): (NGAT_CPU_STEPS, TRAIN_RTOL),
               ("NGNN", "f32fast"): (CPU_STEPS, TRAIN_RTOL),
               ("NGNN", "bf16fast"): (BF16_CPU_STEPS, BF16_TRAIN_RTOL),
-              ("NGAT", "f32fast"): (NGAT_CPU_STEPS, NGAT_FAST_TRAIN_RTOL)}
+              ("NGAT", "f32fast"): (NGAT_CPU_STEPS, NGAT_FAST_TRAIN_RTOL),
+              **{(conv, "f32"): (SUBGRAPH_CPU_STEPS, TRAIN_RTOL)
+                 for conv in SUBGRAPH_CONVS}}
+
+
+def sparse_keys(conv):
+    """The precompute keys of the sparse configuration ``conv``, sorted as
+    ``parse_precomputekey`` gives them."""
+    return SPARSE_KEYS.get(conv, [KEY])
 
 
 def phase(name):
@@ -452,25 +512,34 @@ def check_launch_failure(role, call):
     print(f"{role.NAME}: a refused launch raises and counts nothing")
 
 
-def check_k1(datas, dev, rng, flush, dtype=None, exact=True):
+def check_k1(datas, dev, rng, flush, dtype=None, exact=True, key=KEY,
+             edge_cases=True):
     """K1's three roles, in the variant of operands stored as ``dtype``
-    (f32 unless given) in the math mode ``exact``, at the main path's
-    shapes and on edge cases, against their plain version on the card,
-    and ``SpspmmSum``'s gradients against autograd through the plain
-    version; for a fast or bf16 variant also a refused launch.  Returns
-    the roles' lines of the report."""
+    (f32 unless given) in the math mode ``exact``, at the shapes the
+    precompute ``key`` gives one 128-graph batch of ``datas`` (NGNN's
+    unless given; ``datas`` preprocessed with it) and, with
+    ``edge_cases``, on edge cases, against their plain version on the
+    card, and ``SpspmmSum``'s gradients against autograd through the
+    plain version; for a fast or bf16 variant also a refused launch.
+    Returns the roles' lines of the report."""
     import numpy as np
     import torch
 
     from pygho_tpu_torch.hodata.loader import SpDataloader, backward_orders
+    from pygho_tpu_torch.hodata.sp_data import parsekey
     from pygho_tpu_torch.kernels import spspmm_sum as k1
 
     dtype = dtype or torch.float32
     variant = {r: r.variant(dtype, exact) for r in k1.ROLES}
-    batch = next(iter(SpDataloader(datas, 128, [KEY], backward=True)))
-    nt, ne = batch["tupleid"].shape[1], batch["edge_index"].shape[1]
-    n_t, n_e = int(batch["num_tuples"]), int(batch["num_edges"])
+    batch = next(iter(SpDataloader(datas, 128, [key], backward=True)))
+    nt, n_t = batch["tupleid"].shape[1], int(batch["num_tuples"])
     D = 128
+
+    def rows(op):
+        """An operand's padded and real rows: tuples or edges."""
+        if op[0] == "X":
+            return nt, n_t
+        return batch["edge_index"].shape[1], int(batch["num_edges"])
 
     def operand(rows, real):
         x = np.zeros((rows, D), np.float32)
@@ -483,15 +552,17 @@ def check_k1(datas, dev, rng, flush, dtype=None, exact=True):
         return (L if role is k1.DX else L.to(dtype),
                 R if role is k1.DA else R.to(dtype))
 
-    U, V, g = operand(nt, n_t), operand(ne, n_e), operand(nt, n_t)
-    t = {name: torch.from_numpy(batch[f"{KEY}___{name}"]).to(dev)
+    _, op1, _, op2, _ = parsekey(key)
+    U, V, g = operand(*rows(op1)), operand(*rows(op2)), operand(nt, n_t)
+    t = {name: torch.from_numpy(batch[f"{key}___{name}"]).to(dev)
          for name in ("acd", "rowptr", "acd_dx", "rowptr_dx", "acd_da",
                       "rowptr_da")}
-    # each role's operands at the main path's shapes: forward
+    # each role's operands at the key's shapes: forward
     # out[a] += U[c] * V[d], dX dU[c] += g[a] * V[d], dA dV[d] += U[c] * g[a]
     main = {k1.FWD: (*stored(k1.FWD, U, V), t["acd"], t["rowptr"]),
             k1.DX: (*stored(k1.DX, g, V), t["acd_dx"], t["rowptr_dx"]),
             k1.DA: (*stored(k1.DA, U, g), t["acd_da"], t["rowptr_da"])}
+    shape = "main shape" if key == KEY else f"{key} shape"
 
     def compare(role, U, V, tuv, rowptr):
         """Kernel vs plain version: (max abs error, max error over its
@@ -520,7 +591,7 @@ def check_k1(datas, dev, rng, flush, dtype=None, exact=True):
     for role, args in main.items():
         err, ratio = compare(role, *args)
         errs[role] = err
-        print(f"{variant[role].NAME} main shape: {args[2].shape[1]} "
+        print(f"{variant[role].NAME} {shape}: {args[2].shape[1]} "
               f"triples, operands {tuple(args[0].shape)} and "
               f"{tuple(args[1].shape)}, out {(args[3].shape[0] - 1, D)}; bit "
               f"for bit equal to the plain version (max abs err {err:.3e}, "
@@ -529,78 +600,80 @@ def check_k1(datas, dev, rng, flush, dtype=None, exact=True):
             raise AssertionError(f"{variant[role].NAME} disagrees with its "
                                  f"plain version: {err}")
 
-    # edge cases, for every role: empty rows, one row with many triples, a
-    # padded tail, D = 16, a D that is not a multiple of 4 and an
-    # unaligned left operand (both take the scalar loop), no triples; short
-    # rows with a run of 130 empty rows mid-array, rows of 33 and 120
-    # triples over several chunks, 5 triples past a multiple of 32 (every
-    # chunk size); and the backward orders of a forward case, as the
-    # loader builds them
-    def case(role, D, rows, u_rows, v_rows, out_rows, misalign=False):
-        t_ = np.sort(rows).astype(np.int64)
-        tuv = np.stack([t_, rng.integers(0, u_rows, t_.size),
-                        rng.integers(0, v_rows, t_.size)]).astype(np.int32)
-        rp = np.zeros(out_rows + 1, np.int32)
-        rp[1:] = np.cumsum(np.bincount(t_, minlength=out_rows))
-        Ut = torch.from_numpy(rng.normal(size=(u_rows, D))
-                              .astype(np.float32)).to(dev)
-        Vt = torch.from_numpy(rng.normal(size=(v_rows, D))
-                              .astype(np.float32)).to(dev)
-        Ut, Vt = stored(role, Ut, Vt)
-        if misalign:
-            flat = torch.empty(u_rows * D + 1, device=dev,
-                               dtype=Ut.dtype)[1:]
-            Ut = flat.view(u_rows, D).copy_(Ut)
-        return compare(role, Ut, Vt, torch.from_numpy(tuv).to(dev),
-                       torch.from_numpy(rp).to(dev))
+    if edge_cases:
+        # edge cases, for every role: empty rows, one row with many
+        # triples, a padded tail, D = 16, a D that is not a multiple of 4
+        # and an unaligned left operand (both take the scalar loop), no
+        # triples; short rows with a run of 130 empty rows mid-array, rows
+        # of 33 and 120 triples over several chunks, 5 triples past a
+        # multiple of 32 (every chunk size); and the backward orders of a
+        # forward case, as the loader builds them
+        def case(role, D, rows, u_rows, v_rows, out_rows, misalign=False):
+            t_ = np.sort(rows).astype(np.int64)
+            tuv = np.stack([t_, rng.integers(0, u_rows, t_.size),
+                            rng.integers(0, v_rows, t_.size)]) \
+                .astype(np.int32)
+            rp = np.zeros(out_rows + 1, np.int32)
+            rp[1:] = np.cumsum(np.bincount(t_, minlength=out_rows))
+            Ut = torch.from_numpy(rng.normal(size=(u_rows, D))
+                                  .astype(np.float32)).to(dev)
+            Vt = torch.from_numpy(rng.normal(size=(v_rows, D))
+                                  .astype(np.float32)).to(dev)
+            Ut, Vt = stored(role, Ut, Vt)
+            if misalign:
+                flat = torch.empty(u_rows * D + 1, device=dev,
+                                   dtype=Ut.dtype)[1:]
+                Ut = flat.view(u_rows, D).copy_(Ut)
+            return compare(role, Ut, Vt, torch.from_numpy(tuv).to(dev),
+                           torch.from_numpy(rp).to(dev))
 
-    heavy = np.concatenate([np.full(2000, 5), rng.integers(0, 900, 3000)])
-    heavy = heavy[(heavy != 3) & (heavy != 700)]
-    lens = rng.integers(0, 6, 1000)
-    lens[300:430] = 0
-    lens[[7, 8, 9]] = (120, 33, 32)
-    lens[-1] += (5 - lens.sum()) % 32
-    runs = np.repeat(np.arange(1000), lens)
-    cases = {
-        "empty + heavy rows, D=128": (128, heavy, 500, 400, 1024),
-        "empty + heavy rows, D=16": (16, heavy, 500, 400, 1024),
-        "D=13 (scalar loop)": (13, heavy, 500, 400, 1024),
-        "unaligned U, D=128 (scalar loop)": (128, heavy, 500, 400, 1024,
-                                             True),
-        "no triples": (128, np.zeros(0, np.int64), 10, 10, 64),
-        "short rows, 130 empty rows mid-array, rows over several chunks, "
-        "k = 5 mod 32, D=128": (128, runs, 500, 400, 1000),
-    }
-    for role in k1.ROLES:
-        for name, args in cases.items():
-            e, r = case(role, *args)
-            print(f"{variant[role].NAME} edge case {name}: bit for bit "
-                  f"equal (max abs err {e:.3e}, {r:.3f} of the tolerance)")
+        heavy = np.concatenate([np.full(2000, 5), rng.integers(0, 900, 3000)])
+        heavy = heavy[(heavy != 3) & (heavy != 700)]
+        lens = rng.integers(0, 6, 1000)
+        lens[300:430] = 0
+        lens[[7, 8, 9]] = (120, 33, 32)
+        lens[-1] += (5 - lens.sum()) % 32
+        runs = np.repeat(np.arange(1000), lens)
+        cases = {
+            "empty + heavy rows, D=128": (128, heavy, 500, 400, 1024),
+            "empty + heavy rows, D=16": (16, heavy, 500, 400, 1024),
+            "D=13 (scalar loop)": (13, heavy, 500, 400, 1024),
+            "unaligned U, D=128 (scalar loop)": (128, heavy, 500, 400, 1024,
+                                                 True),
+            "no triples": (128, np.zeros(0, np.int64), 10, 10, 64),
+            "short rows, 130 empty rows mid-array, rows over several chunks, "
+            "k = 5 mod 32, D=128": (128, runs, 500, 400, 1000),
+        }
+        for role in k1.ROLES:
+            for name, args in cases.items():
+                e, r = case(role, *args)
+                print(f"{variant[role].NAME} edge case {name}: bit for bit "
+                      f"equal (max abs err {e:.3e}, {r:.3f} of the tolerance)")
+                if not r <= 1.0:
+                    raise AssertionError(f"{variant[role].NAME} edge case "
+                                         f"{name} disagrees: {e}")
+        # the heavy forward case's backward orders: a 2,000-triple forward row
+        # spreads over the backward roles' rows
+        a = np.sort(heavy)
+        acd = np.stack([a, rng.integers(0, 500, a.size),
+                        rng.integers(0, 400, a.size)])
+        Xc = torch.from_numpy(rng.normal(size=(500, D)).astype(np.float32)) \
+            .to(dev)
+        Ac = torch.from_numpy(rng.normal(size=(400, D)).astype(np.float32)) \
+            .to(dev)
+        gc = torch.from_numpy(rng.normal(size=(1024, D)).astype(np.float32)) \
+            .to(dev)
+        orders = {r: [torch.from_numpy(x).to(dev) for x in v]
+                  for r, v in backward_orders(acd, 500, 400).items()}
+        for role, args in ((k1.DX, (*stored(k1.DX, gc, Ac), *orders["dx"])),
+                           (k1.DA, (*stored(k1.DA, Xc, gc), *orders["da"]))):
+            e, r = compare(role, *args)
+            print(f"{variant[role].NAME} edge case backward orders of the "
+                  f"heavy case: bit for bit equal (max abs err {e:.3e}, "
+                  f"{r:.3f} of the tolerance)")
             if not r <= 1.0:
-                raise AssertionError(f"{variant[role].NAME} edge case "
-                                     f"{name} disagrees: {e}")
-    # the heavy forward case's backward orders: a 2,000-triple forward row
-    # spreads over the backward roles' rows
-    a = np.sort(heavy)
-    acd = np.stack([a, rng.integers(0, 500, a.size),
-                    rng.integers(0, 400, a.size)])
-    Xc = torch.from_numpy(rng.normal(size=(500, D)).astype(np.float32)) \
-        .to(dev)
-    Ac = torch.from_numpy(rng.normal(size=(400, D)).astype(np.float32)) \
-        .to(dev)
-    gc = torch.from_numpy(rng.normal(size=(1024, D)).astype(np.float32)) \
-        .to(dev)
-    orders = {r: [torch.from_numpy(x).to(dev) for x in v]
-              for r, v in backward_orders(acd, 500, 400).items()}
-    for role, args in ((k1.DX, (*stored(k1.DX, gc, Ac), *orders["dx"])),
-                       (k1.DA, (*stored(k1.DA, Xc, gc), *orders["da"]))):
-        e, r = compare(role, *args)
-        print(f"{variant[role].NAME} edge case backward orders of the heavy "
-              f"case: bit for bit equal (max abs err {e:.3e}, {r:.3f} of the "
-              f"tolerance)")
-        if not r <= 1.0:
-            raise AssertionError(f"{variant[role].NAME} on backward orders: "
-                                 f"{e}")
+                raise AssertionError(f"{variant[role].NAME} on backward "
+                                     f"orders: {e}")
 
     # SpspmmSum's gradients on the card against autograd through the plain
     # version, for a random cotangent W.  Exact f32: the same rounded
@@ -622,16 +695,18 @@ def check_k1(datas, dev, rng, flush, dtype=None, exact=True):
     Up, Vp = Us.clone().requires_grad_(), Vs.clone().requires_grad_()
     (k1.contract_plain(Up, Vp, t["acd"], nt, exact) * W).sum().backward()
     with torch.no_grad():
-        mags = (k1.contract_plain(W.abs(), Vs.abs(), t["acd_dx"], nt, exact),
-                k1.contract_plain(Us.abs(), W.abs(), t["acd_da"], ne, exact))
+        mags = (k1.contract_plain(W.abs(), Vs.abs(), t["acd_dx"],
+                                  Us.shape[0], exact),
+                k1.contract_plain(Us.abs(), W.abs(), t["acd_da"],
+                                  Vs.shape[0], exact))
     for what, got, ref, mag in (("grad_U", Uk.grad, Up.grad, mags[0]),
                                 ("grad_V", Vk.grad, Vp.grad, mags[1])):
         if got.dtype != ref.dtype:
             raise AssertionError(f"SpspmmSum {what} is {got.dtype}")
         diff = (got.float() - ref.float()).abs()
         ratio = float((diff / (rtol * mag).clamp_min(1e-30)).max())
-        print(f"SpspmmSum ({mode_name(dtype, exact)}) {what} vs autograd "
-              f"through the plain version: max abs err "
+        print(f"SpspmmSum ({mode_name(dtype, exact)}, {shape}) {what} vs "
+              f"autograd through the plain version: max abs err "
               f"{float(diff.max()):.3e}, {ratio:.3f} of the tolerance "
               f"{rtol:g} * sum |terms|")
         if not ratio <= 1.0:
@@ -676,8 +751,8 @@ def check_k1(datas, dev, rng, flush, dtype=None, exact=True):
         bound_ms, bound_by, nbytes, flops = k1_bound(
             tuv, out_rows, D, sizes[role],
             rounded_ops(reads[role], dtype, exact, base=2))
-        print(f"{name} timing (L2 flushed before each launch, median "
-              f"of 30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        print(f"{name} {shape} timing (L2 flushed before each launch, "
+              f"median of 30): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"(deterministic plain {plain_det_ms:.4f} ms); bound "
               f"{bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s, {flops} "
               f"f32 operations at 67 TFLOP/s); kernel with its inputs "
@@ -764,7 +839,7 @@ def serve(graphs, rng, dev, conv="NGNN"):
     exact = get_fused_math()
     model = sparse_model(conv, dev)
     keys = parse_precomputekey(model)
-    if keys != [KEY]:
+    if keys != sparse_keys(conv):
         raise AssertionError(f"unexpected precompute keys {keys}")
     sampler = partial(KhopSampler, hop=3)
     predictor = SpPredictor(model, sampler, keys, batch_size=128,
@@ -790,7 +865,7 @@ def serve(graphs, rng, dev, conv="NGNN"):
           f"{launches}")
     expected = {mod.NAME: 0 for mod in KERNELS}
     expected[sparse_roles(conv, exact=exact)[0].NAME] = \
-        SPARSE[conv]["num_layer"] * n_batches
+        SPARSE[conv]["num_layer"] * len(keys) * n_batches
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
 
@@ -813,7 +888,7 @@ def serve(graphs, rng, dev, conv="NGNN"):
     cpu_full, cpu_part = cpu(graphs), cpu([graphs[i] for i in subset])
     diff = max(float(np.abs(cpu_full - full).max()),
                float(np.abs(cpu_part - part).max()))
-    tol = SERVE_TOL if exact else FAST_SERVE_TOL
+    tol = SERVE_TOLS.get(conv, SERVE_TOL) if exact else FAST_SERVE_TOL
     print(f"card vs CPU (plain versions): max abs difference {diff:.3e} "
           f"(tolerance {tol:g})")
     if not diff <= tol:
@@ -825,6 +900,12 @@ def serve(graphs, rng, dev, conv="NGNN"):
     t0 = time.perf_counter()
     predictor(graphs)
     raw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    predictor.preprocess(graphs)
+    host_s = time.perf_counter() - t0
+    print(f"host precompute of {len(graphs)} raw graphs (KhopSampler, "
+          f"spspmm_ind for {keys}): {host_s:.3f} s, {host_s / raw_s:.1%} of "
+          f"the raw-graph serving wall time {raw_s:.3f} s")
     reps = 5
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -903,9 +984,10 @@ def training(card, dev, conv="NGNN", dtype=None):
     exact = get_fused_math()
 
     t0 = time.perf_counter()
-    pre = Sppretransform(partial(KhopSampler, hop=3), [""], [KEY])
+    keys = sparse_keys(conv)
+    pre = Sppretransform(partial(KhopSampler, hop=3), [""], keys)
     datas = [pre(g) for g in synthetic_zinc("train", seed=SEED)]
-    loader = SpDataloader(datas, 128, [KEY], shuffle=True, drop_last=True,
+    loader = SpDataloader(datas, 128, keys, shuffle=True, drop_last=True,
                           seed=0, backward=True)
     batches = []
     while len(batches) < TRAIN_STEPS:      # 8 batches an epoch
@@ -937,8 +1019,8 @@ def training(card, dev, conv="NGNN", dtype=None):
           f"{[f'{x:.6f}' for x in losses]}; kernel launches {launches}; "
           f"peak device memory {peak / 2 ** 30:.3f} GiB ({peak} bytes)")
     mine = {mod.NAME for mod in sparse_roles(conv, dtype, exact)}
-    want = {mod.NAME: SPARSE[conv]["num_layer"] if mod.NAME in mine else 0
-            for mod in KERNELS}
+    want = {mod.NAME: SPARSE[conv]["num_layer"] * len(keys)
+            if mod.NAME in mine else 0 for mod in KERNELS}
     for i, c in enumerate(per_step):
         if c != want:
             raise AssertionError(f"step {i} launched {c}, expected {want}")
@@ -970,9 +1052,9 @@ def training(card, dev, conv="NGNN", dtype=None):
 
     train_timing(card, dev, datas, conv=conv, dtype=dtype,
                  what=f"{conv}-SS 6x128 ({mode_name(dtype, exact)})")
-    print(f"{conv}-SS 6x128 ({mode_name(dtype, exact)}) training: peak "
-          f"device memory {peak / 2 ** 30:.3f} GiB ({peak} bytes) over the "
-          f"first run")
+    print(f"{conv}-SS 6x128 ({mode_name(dtype, exact)}) training on "
+          f"{card}: peak device memory {peak / 2 ** 30:.3f} GiB ({peak} "
+          f"bytes) over the first run")
     return launches
 
 
@@ -992,8 +1074,8 @@ def train_timing(card, dev, datas, reps=8, conv="NGNN", dtype=None,
     model.train()
     opt = make_optimizer(model, TRAIN_LR)
     train_step, _ = make_sparse_steps()
-    loader = SpDataloader(datas, 128, [KEY], shuffle=True, drop_last=True,
-                          seed=1, backward=True)
+    loader = SpDataloader(datas, 128, sparse_keys(conv), shuffle=True,
+                          drop_last=True, seed=1, backward=True)
     for batch in loader:                  # warm up: buckets, allocator
         train_step(model, opt, batch)
     sync()
@@ -2335,6 +2417,16 @@ def main():
     pre = Sppretransform(partial(KhopSampler, hop=3), [""], [KEY])
     datas = [pre(g) for g in graphs]
     report = check_k1(datas, dev, rng, flush_buf.zero_)
+    # K1's f32 roles at the subgraph convs' new shapes: SSWL's cross key
+    # and PPGN-SS's 2-FWL key, on the same 128 graphs
+    for key in (CROSS_KEY, FWL_KEY):
+        t1 = time.perf_counter()
+        key_pre = Sppretransform(partial(KhopSampler, hop=3), [""], [key])
+        key_datas = [key_pre(g) for g in graphs]
+        print(f"{key}: {len(graphs)} graphs preprocessed in "
+              f"{time.perf_counter() - t1:.3f} s on the host")
+        check_k1(key_datas, dev, rng, flush_buf.zero_, key=key,
+                 edge_cases=False)
     dense_pre = Mapretransform(partial(spdsampler, hop=DENSE_HOP))
     dense_datas = [dense_pre(g) for g in graphs]
     report += check_k5(dense_datas, dev, rng, flush_buf.zero_)
@@ -2456,17 +2548,32 @@ def main():
     zinc_launches = zinc_entry(card, dev)
     done("ZINC entry point", t0)
 
+    t0 = phase("subgraph convs")
+    subgraph_launches = []
+    for conv in SUBGRAPH_CONVS:
+        t1 = time.perf_counter()
+        raw_gps, pre_gps, conv_launches = serve(graphs, rng, dev, conv)
+        print(f"{conv}-SS 6x128 serving on {card}: {raw_gps:.1f} graphs/s "
+              f"from raw graphs (host precompute included), {pre_gps:.1f} "
+              f"graphs/s from preprocessed graphs")
+        subgraph_launches += [conv_launches, training(card, dev, conv)]
+        print(f"{conv}-SS 6x128 served and trained in "
+              f"{time.perf_counter() - t1:.3f} s")
+    done("subgraph convs", t0)
+
     # launches: each main path's run (NGNN serving and training, dense
     # serving and training, NGAT serving and training, giant-graph
     # training, the fast and bf16 runs, the NGNN dense runs, the giant
-    # graph's fast training and the ZINC entry point), each counted from 0
-    # just before the path and read just after
+    # graph's fast training, the ZINC entry point and the subgraph convs'
+    # serving and training), each counted from 0 just before the path and
+    # read just after
     runs = (launches, train_launches, dense_launches, dense_train_launches,
             ngat_launches, ngat_train_launches, giant_launches,
             fast_launches, fast_train_launches, bf16_train_launches,
             ngat_fast_launches, ngnn_dd_launches, ngnn_dd_train_launches,
             ngnn_bf16_train_launches, ngnn_sd_launches, sd_densify_launches,
-            sd_fused_launches, giant_fast_launches, zinc_launches)
+            sd_fused_launches, giant_fast_launches, zinc_launches,
+            *subgraph_launches)
     for line in report:
         line["launches"] = sum(run[line["name"]] for run in runs)
     unlaunched = [line["name"] for line in report if not line["launches"]

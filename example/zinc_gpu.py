@@ -5,13 +5,16 @@ example/zinc.py argparse matrix, with the same flag names and defaults.
 Run examples:
   python example/zinc_gpu.py --sparse --conv NGNN [--fused]
   python example/zinc_gpu.py --sparse --conv NGAT
+  python example/zinc_gpu.py --sparse --conv SUN --fused   (also SSWL,
+                                    DSSGNN, GNNAK, PPGN in sparse mode)
   python example/zinc_gpu.py --conv PPGN            (dense / DD mode)
   python example/zinc_gpu.py --conv NGNN --bf16     (dense / DD mode)
   python example/zinc_gpu.py --cpu ...              (on the CPU)
 
 It trains on the CUDA card unless ``--cpu`` is given; with no card and no
-``--cpu`` it raises.  The port runs the sparse NGNN and NGAT convs and
-the dense PPGN and NGNN (DD) convs, with ``--fused`` (the fast numerics
+``--cpu`` it raises.  The port runs the sparse NGNN, NGAT, SSWL, DSSGNN,
+GNNAK, SUN and PPGN convs (``--cpool`` reaches DSSGNN, GNNAK and SUN)
+and the dense PPGN and NGNN (DD) convs, with ``--fused`` (the fast numerics
 mode of the sparse kernels, ``set_fused_math(False)``), ``--bf16``
 (bf16 compute over f32 parameters), ``--repeat``/``--seed0``,
 ``--ntrain``, ``--data-root``/``--full`` (the real ZINC from its raw
@@ -29,6 +32,15 @@ epoch an ``epoch`` record (``MetricsLogger.log_epoch``) and a
 ``compile_secs_total`` count XLA compiles, which eager PyTorch does not
 do, and are left out.  Preprocessed datasets are cached under
 ``--cache-dir`` (default ``dataset/torch``, a root of the port's own).
+
+``--ckpt DIR`` (the port's own flag, as ``example/minimal_gpu.py``'s)
+saves the model, the optimizer and the run's state (the epoch, the best
+val MAE and its test MAE, the epoch times and losses, the loaders' shuffle
+state and padding buckets) after every epoch, keeping the latest only,
+and a run that finds a checkpoint there resumes after its epoch: a run
+longer than one sitting goes on where it stopped, its later epochs
+computed as an unbroken run would compute them.  The resumed run's jsonl
+records are appended to the same file, after a second ``padding`` record.
 """
 
 import argparse
@@ -46,7 +58,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-SPARSE_CONVS = ("NGNN", "NGAT")
+SPARSE_CONVS = ("NGNN", "NGAT", "SSWL", "DSSGNN", "GNNAK", "SUN", "PPGN")
 DENSE_CONVS = ("NGNN", "PPGN")
 
 
@@ -122,6 +134,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="root of the preprocessed-dataset caches")
     parser.add_argument("--log-dir", type=str, default="runs",
                         help="directory of the per-epoch jsonl records")
+    parser.add_argument("--ckpt", type=str, default=None,
+                        help="checkpoint directory: save after every "
+                             "epoch, resume from the latest there")
     return parser
 
 
@@ -144,6 +159,9 @@ def refusal(args) -> Optional[str]:
         return f"--aggr {args.aggr} with --sparse {roadmap} {item})"
     if args.sparse and args.lpool == "max":
         return f"--lpool max with --sparse {roadmap} 6)"
+    if args.sparse and args.cpool == "max" \
+            and args.conv in ("DSSGNN", "GNNAK", "SUN"):
+        return f"--cpool max with --sparse {roadmap} 6)"
     if args.norm != "bn":
         return f"--norm {args.norm} {roadmap} 6)"
     if args.dp != 0.0:
@@ -218,8 +236,8 @@ class ZincRun:
             self.model = make_sp_model(
                 args.conv, num_layer=args.num_layer, hiddim=args.hiddim,
                 aggr=args.aggr, npool=args.npool, lpool=args.lpool,
-                outlayer=args.outlayer, mlp=mlpdict, seed=rep, dtype=dtype,
-                device=device)
+                cpool=args.cpool, outlayer=args.outlayer, mlp=mlpdict,
+                seed=rep, dtype=dtype, device=device)
             keys = parse_precomputekey(self.model)
             pre = Sppretransform(partial(KhopSampler, hop=args.hop), [""],
                                  keys)
@@ -306,14 +324,17 @@ class ZincRun:
             = None) -> Dict:
         """The epoch loop of ``example/zinc_tpu.py``: train, val MAE, test
         MAE where val improves, the records; ``on_epoch(epoch, self)``
-        after each epoch's records.  Returns the converged-protocol
-        summary (:meth:`record`)."""
+        after each epoch's records.  With ``--ckpt`` it resumes after the
+        checkpoint there and saves one after every epoch.  Returns the
+        converged-protocol summary (:meth:`record`)."""
         from pygho_tpu_torch.utils import device_memory_stats
 
         args = self.args
         self.best_val, self.tst, self.best_epoch = math.inf, math.inf, 0
         self.epoch_times, self.losses = [], []
-        for epoch in range(1, args.epochs + 1):
+        ckpt = args.ckpt and os.path.join(args.ckpt, f"r{self.rep}")
+        start = self.restore(ckpt) + 1 if ckpt else 1
+        for epoch in range(start, args.epochs + 1):
             t1 = time.time()
             loss = self.train_epoch()
             self._sync()
@@ -333,12 +354,57 @@ class ZincRun:
                       for e in ld.buckets.drain_events()]
             self.metrics.log({"type": "telemetry", "epoch": epoch,
                               "bucket_growth": growth})
+            if ckpt:
+                self.save(ckpt, epoch)
             if on_epoch is not None:
                 on_epoch(epoch, self)
             if math.isnan(loss) or math.isnan(val):
                 break
         self.metrics.close()
         return self.record()
+
+    _STATE = "run_state.json"
+
+    def save(self, path: str, epoch: int) -> None:
+        """The checkpoint of ``epoch`` under ``path`` (model, optimizer,
+        and the run's state beside them); older ones are removed."""
+        import shutil
+
+        from pygho_tpu_torch.utils import save_checkpoint
+
+        d = save_checkpoint(path, self.model, self.opt, epoch)
+        state = {"epoch": epoch, "best_val": self.best_val, "tst": self.tst,
+                 "best_epoch": self.best_epoch,
+                 "epoch_times": self.epoch_times, "losses": self.losses,
+                 "loaders": {k: {"rng": ld.rng.bit_generator.state,
+                                 "buckets": dict(ld.buckets)}
+                             for k, ld in self.loaders.items()}}
+        with open(os.path.join(d, self._STATE), "w") as f:
+            json.dump(state, f)
+        for old in os.listdir(path):
+            if old.startswith("step_") and old != os.path.basename(d):
+                shutil.rmtree(os.path.join(path, old))
+
+    def restore(self, path: str) -> int:
+        """Restore the latest checkpoint under ``path`` into this run, and
+        return its epoch; 0 where there is none."""
+        from pygho_tpu_torch.utils import restore_checkpoint
+
+        if not os.path.isdir(path) or not any(
+                d.startswith("step_") for d in os.listdir(path)):
+            return 0
+        epoch = restore_checkpoint(path, self.model, self.opt)
+        with open(os.path.join(path, f"step_{epoch}", self._STATE)) as f:
+            state = json.load(f)
+        self.best_val, self.tst = state["best_val"], state["tst"]
+        self.best_epoch = state["best_epoch"]
+        self.epoch_times, self.losses = state["epoch_times"], state["losses"]
+        for k, ld in self.loaders.items():
+            ld.rng.bit_generator.state = state["loaders"][k]["rng"]
+            ld.buckets.update(state["loaders"][k]["buckets"])
+            ld.buckets.drain_events()
+        print(f"resumed after epoch {epoch} from {path}", flush=True)
+        return epoch
 
     def record(self) -> Dict:
         """The converged-protocol summary, with the keys of

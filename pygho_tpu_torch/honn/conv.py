@@ -1,6 +1,13 @@
-"""High-order GNN layers (port of ``NGNNConv``, ``PPGNConv`` and
-``NGATConv`` from ``pygho_tpu/honn/conv.py``).  The MLPs are mask-aware:
-padded rows and padded dense slots never enter batch-norm statistics."""
+"""High-order GNN layers (port of ``pygho_tpu/honn/conv.py``: ``NGNNConv``,
+``SSWLConv``, ``DSSGNNConv``, ``PPGNConv``, ``GNNAKConv``, ``SUNConv`` and
+``NGATConv``; ``I2Conv`` is not ported).  The MLPs are mask-aware: padded
+rows and padded dense slots never enter batch-norm statistics.
+
+SSWL, DSSGNN, GNNAK and SUN run in the sparse mode ("SS") only; their
+dense and SD modes raise (``ROADMAP.md``, Queue A item 9).  Module
+attributes carry the JAX package's names (``aggr1``, ``lin0``,
+``lin1_0`` and so on), so ``weights.load_jax_params`` maps them path for
+path."""
 
 from __future__ import annotations
 
@@ -16,7 +23,7 @@ from ..kernels.segment_attention import SegmentAttention
 from ..kernels.spspmm_sum import to_bf16
 from . import tensorop as TensorOp
 from .sp_operator import OpMessagePassing, _fetch, fetch_backward_orders
-from .utils import MLP, make_linear
+from .utils import MLP, HeteroLinear, make_linear
 
 Tensorish = Union[SparseTensor, MaskedTensor]
 
@@ -49,13 +56,62 @@ class NGNNConv(nn.Module):
         return self.aggr(A, tX, datadict, tX)
 
 
+class SSWLConv(nn.Module):
+    """Subgraph WL layer: MLP(cat[X, MP_subg(A, X), MP_cross(A, X)])
+    (reference Conv.py:62-103; B. Zhang et al., ICML 2023).  Two K1
+    contractions a layer: ``X___X___1___A___0`` and the cross key
+    ``X___A___1___X___0``, whose first operand is the edge values."""
+
+    def __init__(self, indim: int, outdim: int, aggr: str = "sum",
+                 mode: str = "SS", mlp: dict = {}, optuplefeat: str = "X",
+                 opadj: str = "A", *, generator: torch.Generator):
+        super().__init__()
+        self.aggr1 = TensorOp.OpMessagePassingOnSubg2D(mode, aggr,
+                                                       optuplefeat, opadj)
+        self.aggr2 = TensorOp.OpMessagePassingCrossSubg2D(mode, aggr,
+                                                          optuplefeat, opadj)
+        self.lin = MLP(3 * indim, outdim, generator=generator, **mlp)
+
+    def forward(self, A: Tensorish, X: Tensorish,
+                datadict: Dict) -> Tensorish:
+        X1 = self.aggr1(A, X, datadict, X)
+        X2 = self.aggr2(A, X, datadict, X)
+        return _apply(X.catvalue([X1, X2], True), self.lin)
+
+
+class DSSGNNConv(nn.Module):
+    """ESAN/DSS layer: MLP(cat[MP_subg(A, X), unpool(nodeMP(A,
+    pool_cross(X)))]) (reference Conv.py:151-196; Bevilacqua et al., ICLR
+    2022).  One K1 contraction a layer; the node message passing is
+    ``backend.spmm``."""
+
+    def __init__(self, indim: int, outdim: int, aggr_subg: str = "sum",
+                 aggr_global: str = "sum", pool: str = "mean",
+                 mode: str = "SS", mlp: dict = {}, optuplefeat: str = "X",
+                 opadj: str = "A", *, generator: torch.Generator):
+        super().__init__()
+        self.aggr_subg = TensorOp.OpMessagePassingOnSubg2D(
+            mode, aggr_subg, optuplefeat, opadj)
+        self.pool2global = TensorOp.OpPoolingCrossSubg2D(mode[1], pool)
+        self.aggr_global = TensorOp.OpNodeMessagePassing(mode, aggr_global)
+        self.unpooling2subg = TensorOp.OpUnpoolingRootNodes2D(mode[1])
+        self.lin = MLP(2 * indim, outdim, generator=generator, **mlp)
+
+    def forward(self, A: Tensorish, X: Tensorish,
+                datadict: Dict) -> Tensorish:
+        X1 = self.unpooling2subg(self.aggr_global(A, self.pool2global(X)), X)
+        X2 = self.aggr_subg(A, X, datadict, X)
+        return _apply(X2.catvalue(X1, True), self.lin)
+
+
 class PPGNConv(nn.Module):
     """Provably powerful graph network layer: the 2-FWL product
     MLP1(X) @ MLP2(X) (reference Conv.py:200-236; Maron et al., NeurIPS
-    2019).  Only the dense ("DD") mode is ported."""
+    2019), in the sparse mode ("SS": K1 on the key ``X___X___1___X___0``,
+    both operands tuple values) and the dense one ("DD": K5)."""
 
     def __init__(self, indim: int, outdim: int, aggr: str = "sum",
-                 mode: str = "DD", mlp: dict = {}, optuplefeat: str = "X",
+                 mode: str = "SS", mlp: dict = {}, optuplefeat: str = "X",
                  *, generator: torch.Generator):
         super().__init__()
         self.op = TensorOp.Op2FWL(mode, aggr, optuplefeat)
@@ -66,6 +122,77 @@ class PPGNConv(nn.Module):
                 datadict: Dict) -> Tensorish:
         return self.op(_apply(X, self.lin1), _apply(X, self.lin2),
                        datadict, X)
+
+
+class GNNAKConv(nn.Module):
+    """GNN-as-kernel layer: MP(A, MLP0(X)), then MLP1(cat[unpool(pool_subg),
+    unpool(diag), unpool(pool_cross)]), the last only with ``ctx``
+    (reference Conv.py:240-297; Zhao et al., ICLR 2022).  One K1
+    contraction a layer."""
+
+    def __init__(self, indim: int, outdim: int, aggr: str = "sum",
+                 pool: str = "mean", mode: str = "SS", mlp0: dict = {},
+                 mlp1: dict = {}, ctx: bool = True, optuplefeat: str = "X",
+                 opadj: str = "A", *, generator: torch.Generator):
+        super().__init__()
+        self.lin0 = MLP(indim, indim, generator=generator, **mlp0)
+        self.aggr = TensorOp.OpMessagePassingOnSubg2D(mode, aggr,
+                                                      optuplefeat, opadj)
+        self.diag = TensorOp.OpDiag2D(mode[1])
+        self.pool2subg = TensorOp.OpPoolingSubg2D(mode[1], pool)
+        self.unpool4subg = TensorOp.OpUnpoolingSubgNodes2D(mode[1])
+        self.ctx = ctx
+        if ctx:
+            self.pool2node = TensorOp.OpPoolingCrossSubg2D(mode[1], pool)
+            self.unpool4rootnode = TensorOp.OpUnpoolingRootNodes2D(mode[1])
+        self.lin = MLP(3 * indim if ctx else 2 * indim, outdim,
+                       generator=generator, **mlp1)
+
+    def forward(self, A: Tensorish, X: Tensorish,
+                datadict: Dict) -> Tensorish:
+        X = self.aggr(A, _apply(X, self.lin0), datadict, X)
+        X1 = self.unpool4subg(self.diag(X), X)
+        X2 = self.unpool4subg(self.pool2subg(X), X)
+        if self.ctx:
+            X3 = self.unpool4rootnode(self.pool2node(X), X)
+            return _apply(X2.catvalue([X1, X3], True), self.lin)
+        return _apply(X2.catvalue(X1, True), self.lin)
+
+
+class SUNConv(nn.Module):
+    """SUN layer: seven branches concatenated (7 * indim wide), a
+    ``HeteroLinear`` that maps diagonal and off-diagonal tuples with
+    weights of their own, and an MLP (reference Conv.py:301-363; Frasca et
+    al., NeurIPS 2022).  One K1 contraction a layer."""
+
+    def __init__(self, indim: int, outdim: int, aggr: str = "sum",
+                 pool: str = "mean", mode: str = "SS", mlp0: dict = {},
+                 mlp1: dict = {}, optuplefeat: str = "X", opadj: str = "A",
+                 *, generator: torch.Generator):
+        super().__init__()
+        self.lin0 = MLP(indim, indim, generator=generator, **mlp0)
+        self.aggr = TensorOp.OpMessagePassingOnSubg2D(mode, aggr,
+                                                      optuplefeat, opadj)
+        self.diag = TensorOp.OpDiag2D(mode[1])
+        self.pool2subg = TensorOp.OpPoolingSubg2D(mode[1], pool)
+        self.unpool4subg = TensorOp.OpUnpoolingSubgNodes2D(mode[1])
+        self.pool2node = TensorOp.OpPoolingCrossSubg2D(mode[1], pool)
+        self.unpool4rootnode = TensorOp.OpUnpoolingRootNodes2D(mode[1])
+        self.lin1_0 = HeteroLinear(7 * indim, indim, 2, False,
+                                   generator=generator)
+        self.lin1_1 = MLP(indim, outdim, generator=generator, **mlp1)
+
+    def forward(self, A: Tensorish, X: Tensorish,
+                datadict: Dict) -> Tensorish:
+        X4 = self.aggr(A, _apply(X, self.lin0), datadict, X)
+        Xdiag = self.diag(X)
+        X2 = self.unpool4subg(Xdiag, X)
+        X3 = self.unpool4rootnode(Xdiag, X)
+        X5 = self.unpool4rootnode(self.pool2node(X), X)
+        X6 = self.unpool4subg(self.pool2subg(X), X)
+        X7 = self.unpool4rootnode(self.pool2node(X4), X)
+        Xc = X.catvalue([X2, X3, X4, X5, X6, X7], True)
+        return _apply(Xc.diagonalapply(self.lin1_0), self.lin1_1)
 
 
 class NGATConv(nn.Module):

@@ -169,3 +169,41 @@ class MLP(nn.Module):
         if self.tailact:
             x = self.act(self.tail_norm(x, mask))
         return x
+
+
+class HeteroLinear(nn.Module):
+    """Type-conditional linear map, ``out = x @ weight[type] (+
+    bias[type])`` (reference honn/utils.py:165-190, SUN's diagonal vs
+    off-diagonal routing).  ``weight`` is ``(num_types, in, out)`` and
+    ``bias`` ``(num_types, out)``, in the JAX layout and under the JAX
+    names, so ``weights.load_jax_params`` copies them as they are.
+
+    The JAX layer forms every type's product and selects one by a one-hot
+    sum; this forms every type's product and selects one by
+    ``torch.where``, which gives the selected product exactly where the
+    one-hot sum adds zeros to it.  The weight is LeCun-normal with JAX's
+    fan-in for a 3-D shape, ``in * num_types``; the input is promoted to
+    the weight's dtype (f32), as JAX's einsum promotes a bf16 input."""
+
+    def __init__(self, indim: int, outdim: int, num_types: int,
+                 use_bias: bool = True, *, generator: torch.Generator):
+        super().__init__()
+        self.num_types = num_types
+        self.weight = nn.Parameter(torch.empty(num_types, indim, outdim))
+        std = math.sqrt(1.0 / (indim * num_types)) / .87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.weight, std=std, a=-2 * std,
+                                  b=2 * std, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(num_types, outdim)) \
+            if use_bias else None
+
+    def forward(self, x: torch.Tensor, types: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
+        sel = types.long().unsqueeze(-1)
+        out = None
+        for t in range(self.num_types):
+            y = x @ self.weight[t]
+            if self.bias is not None:
+                y = y + self.bias[t]
+            out = y if out is None else torch.where(sel == t, y, out)
+        return out

@@ -1,8 +1,8 @@
 """ZINC-style HOGNN models (port of ``InputEncoderSp``, ``SpModel``,
 ``make_sp_model``, ``InputEncoderMa``, ``MaModel`` and ``make_ma_model``
-from ``pygho_tpu/models/zinc.py``; NGNN and NGAT in sparse mode, NGNN in
-the dense modes (DD, SD) and PPGN in dense mode, each in f32 or with
-bf16 compute over f32 parameters).
+from ``pygho_tpu/models/zinc.py``; NGNN, NGAT, SSWL, DSSGNN, GNNAK, SUN
+and PPGN in sparse mode, NGNN in the dense modes (DD, SD) and PPGN in
+dense mode, each in f32 or with bf16 compute over f32 parameters).
 
 ``SpModel`` takes the datadict of ``hodata.batch_to_sparse_dict``,
 ``MaModel`` that of ``hodata.batch_to_dense_dict``; both return
@@ -65,20 +65,30 @@ class InputEncoderSp(nn.Module):
         return datadict
 
 
-def _sp_convdict(aggr: str, mlp: dict, generator: torch.Generator):
-    """Sparse conv factories (the ported part of the JAX package's
-    ``_sp_convdict``)."""
+def _sp_convdict(aggr: str, cpool: str, mlp: dict,
+                 generator: torch.Generator):
+    """Sparse conv factories (the JAX package's ``_sp_convdict``,
+    ``models/zinc.py:107-131``, without I2GNN)."""
+    g = dict(generator=generator)
     return {
-        "NGNN": lambda d: Conv.NGNNConv(d, d, aggr, "SS", mlp,
-                                        generator=generator),
-        "NGAT": lambda d: Conv.NGATConv(d, d, aggr, "SS", mlp,
-                                        generator=generator),
+        "NGNN": lambda d: Conv.NGNNConv(d, d, aggr, "SS", mlp, **g),
+        "SSWL": lambda d: Conv.SSWLConv(d, d, aggr, "SS", mlp, **g),
+        "DSSGNN": lambda d: Conv.DSSGNNConv(d, d, aggr, aggr, cpool, "SS",
+                                            mlp, **g),
+        "GNNAK": lambda d: Conv.GNNAKConv(d, d, aggr, cpool, "SS", mlp, mlp,
+                                          **g),
+        "SUN": lambda d: Conv.SUNConv(d, d, aggr, cpool, "SS", mlp, mlp,
+                                      **g),
+        "PPGN": lambda d: Conv.PPGNConv(d, d, aggr, "SS", mlp, **g),
+        "NGAT": lambda d: Conv.NGATConv(d, d, aggr, "SS", mlp, **g),
     }
 
 
 class SpModel(nn.Module):
     """Sparse HOGNN for graph regression (reference
-    example/zinc.py:225-294).  The NGNN and NGAT convs are ported.
+    example/zinc.py:225-294).  Every sparse conv of the JAX package but
+    I2GNN is ported; ``cpool`` is the cross-subgraph pooling of DSSGNN,
+    GNNAK and SUN.
 
     ``dtype`` is the compute dtype (``torch.bfloat16`` for mixed
     precision): the MLPs and the tuple-init layers compute in it over f32
@@ -92,8 +102,8 @@ class SpModel(nn.Module):
     def __init__(self, conv: str = "NGNN", num_tasks: int = 1,
                  num_layer: int = 6, hiddim: int = 128, aggr: str = "sum",
                  npool: str = "sum", lpool: str = "mean",
-                 residual: bool = True, outlayer: int = 2,
-                 mlp: Optional[dict] = None,
+                 cpool: str = "mean", residual: bool = True,
+                 outlayer: int = 2, mlp: Optional[dict] = None,
                  dtype: Optional[torch.dtype] = None, *,
                  generator: torch.Generator):
         super().__init__()
@@ -103,7 +113,7 @@ class SpModel(nn.Module):
         if dtype is not None:
             mlp.setdefault("dtype", dtype)
         self.dtype = dtype
-        convdict = _sp_convdict(aggr, mlp, generator)
+        convdict = _sp_convdict(aggr, cpool, mlp, generator)
         if conv not in convdict:
             raise NotImplementedError(
                 f"conv {conv!r} is not ported yet; available: "

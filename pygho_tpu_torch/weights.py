@@ -11,7 +11,9 @@ onto a parameter or buffer of the same dotted name, with these changes:
 
 - ``Linear.kernel`` ``(in, out)`` -> ``weight`` ``(out, in)``, transposed;
 - ``Embed.embedding`` -> ``weight``;
-- ``BatchNorm`` ``scale``/``bias``/``mean``/``var`` keep their names.
+- ``BatchNorm`` ``scale``/``bias``/``mean``/``var`` keep their names;
+- ``HeteroLinear`` (SUN's ``lin1_0``) ``weight`` ``(num_types, in, out)``
+  and ``bias`` keep their names and layout, and are copied as they are.
 
 A plain parameter tree of nested dicts and lists, such as
 ``pygho_tpu.parallel.init_giant_params``'s, flattens to such paths with

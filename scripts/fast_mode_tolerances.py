@@ -24,6 +24,17 @@ graph of ``chip_smoke.py`` (``GIANT``, its plan under ``overlapped_fused``)
 the same way, the second time with every layer's matmul summed in another
 order (two halves of the input dim, then their sum), the basis of its
 ``GIANT_RTOL`` in phase 20 (the fast mode); one to two minutes each.
+``SERVE-<conv>`` (not run by default; ``conv`` one of ``chip_smoke.py``'s
+``SPARSE`` configurations) serves the 128 graphs that ``chip_smoke.py``
+serves, in the exact mode, as its ``serve`` does (weights from seed 0,
+BatchNorm statistics from one batch), and serves them again with every
+``Linear`` summed over two halves of its input dim, and again with every
+``Linear`` summed in f64 and rounded once to f32, each time with the
+first run's statistics, and prints the largest absolute difference of
+the predictions from the first run's: how far the f32 rounding of the
+matrix products moves them, the basis of ``chip_smoke.py``'s
+``SERVE_TOLS``.  The seed-0 weights depend on PyTorch's version (its
+``trunc_normal_``), so run it where the card's numbers were taken.
 """
 
 import argparse
@@ -101,6 +112,57 @@ def split_matmul(giant_module):
     return giant_module.GiantLinear.forward, forward
 
 
+def split_linear(utils_module):
+    """A ``Linear`` forward (f32) that sums ``x @ W.T`` over two halves of
+    the input dim and adds them: the same products up to the last bits."""
+    import torch.nn.functional as F
+
+    def forward(self, x):
+        h = x.shape[-1] // 2
+        x = x.float()
+        return (F.linear(x[..., :h], self.weight[:, :h])
+                + F.linear(x[..., h:], self.weight[:, h:])) + self.bias
+
+    return utils_module.Linear.forward, forward
+
+
+def f64_linear(self, x):
+    """A ``Linear`` forward summed in f64 and rounded once to f32."""
+    import torch.nn.functional as F
+
+    return F.linear(x.double(), self.weight.double(),
+                    self.bias.double()).float()
+
+
+def serve_drift(cs, conv, utils_module):
+    """How far ``conv``'s predictions on ``chip_smoke.py``'s served graphs
+    move when every ``Linear`` sums in another order
+    (:func:`split_linear`) and in f64 (:func:`f64_linear`), with the same
+    BatchNorm statistics: ``{variant: max abs difference}``, and the
+    largest |prediction|."""
+    from pygho_tpu_torch.hodata import KhopSampler, synthetic_zinc
+    from pygho_tpu_torch.honn import parse_precomputekey
+    from pygho_tpu_torch.models import SpPredictor
+
+    graphs = synthetic_zinc("val", seed=cs.SEED)
+    model = cs.sparse_model(conv, "cpu")
+    predictor = SpPredictor(model, partial(KhopSampler, hop=3),
+                            parse_precomputekey(model), batch_size=128,
+                            device="cpu")
+    datas = predictor.preprocess(graphs)
+    cs.calibrate_batchnorm(model, predictor, datas)
+    base = predictor(datas)
+    orig, split = split_linear(utils_module)
+    drift = {}
+    for name, forward in (("split", split), ("f64", f64_linear)):
+        utils_module.Linear.forward = forward
+        try:
+            drift[name] = float(abs(predictor(datas) - base).max())
+        finally:
+            utils_module.Linear.forward = orig
+    return drift, float(abs(base).max())
+
+
 def giant_run(cs, steps):
     """``train(device, data, steps)`` for the giant graph under
     ``overlapped_fused`` (its steps built in the mode set), with its
@@ -165,6 +227,15 @@ def main():
           f"{args.steps} batches of 128 graphs as chip_smoke.py trains on")
     for run in args.runs.split(","):
         conv, mode = run.split("-")
+        if conv == "SERVE":
+            t0 = time.perf_counter()
+            drift, top = serve_drift(cs, mode, utils_module)
+            print(f"{run}: max abs prediction difference, every Linear "
+                  f"summed by halves {drift['split']:.3e}, in f64 "
+                  f"{drift['f64']:.3e} (largest |prediction| {top:.4f}; "
+                  f"torch {torch.__version__}; "
+                  f"{time.perf_counter() - t0:.1f} s)", flush=True)
+            continue
         exact = not mode.endswith("fast")
         dtype = torch.bfloat16 if mode.startswith("bf16") else None
         if conv == "NGNNDD":

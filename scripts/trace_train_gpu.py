@@ -1,14 +1,18 @@
 """Where a training step of the PyTorch / CUDA port goes, on one CUDA card.
 
     python3 scripts/trace_train_gpu.py
-        [--model ngnn-ss|ngat-ss|ppgn-dd|ngnn-dd|ngnn-dd-bf16|ngnn-sd|
-                 ngnn-sd-fused|giant] [--steps 5] [--out trace_out]
+        [--model ngnn-ss|ngat-ss|sswl-ss|dssgnn-ss|gnnak-ss|sun-ss|ppgn-ss|
+                 ppgn-dd|ngnn-dd|ngnn-dd-bf16|ngnn-sd|ngnn-sd-fused|giant]
+        [--steps 5] [--out trace_out]
 
 Trains NGNN-SS 6x128 (weights from seed 0, AdamW at lr 1e-3, through
 ``make_sparse_steps``), with ``--model ngat-ss`` NGAT-SS 6x128 and with
 ``--model ppgn-dd`` PPGN-DD 6x128, both as ``chip_smoke.py`` configures
 them (AdamW at lr 1e-3 and 4.5e-3, through ``make_sparse_steps`` and
-``make_dense_steps``), with ``--model ngnn-dd`` NGNN-DD 6x128 as
+``make_dense_steps``), with ``--model sswl-ss``, ``dssgnn-ss``,
+``gnnak-ss``, ``sun-ss`` or ``ppgn-ss`` that subgraph conv at 6x128 as
+``chip_smoke.py``'s phase 22 trains it (AdamW at lr 1e-3, on the conv's
+precompute keys), with ``--model ngnn-dd`` NGNN-DD 6x128 as
 ``chip_smoke.py`` configures it (AdamW at lr 1e-2), ``ngnn-dd-bf16`` the
 same with bf16 compute, ``ngnn-sd`` in SD mode on the densify route (K5)
 and ``ngnn-sd-fused`` on the fused route (K1), on 128-graph batches of
@@ -51,15 +55,12 @@ sys.path.insert(0, str(REPO))
 import pygho_tpu_torch  # noqa: E402,F401  (sets the cuBLAS workspace)
 import torch  # noqa: E402
 
-KEY = "X___X___1___A___0"
-
-
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("ngnn-ss", "ngat-ss", "ppgn-dd",
-                                        "ngnn-dd", "ngnn-dd-bf16", "ngnn-sd",
-                                        "ngnn-sd-fused", "giant"),
-                    default="ngnn-ss")
+    ap.add_argument("--model", choices=(
+        "ngnn-ss", "ngat-ss", "sswl-ss", "dssgnn-ss", "gnnak-ss", "sun-ss",
+        "ppgn-ss", "ppgn-dd", "ngnn-dd", "ngnn-dd-bf16", "ngnn-sd",
+        "ngnn-sd-fused", "giant"), default="ngnn-ss")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="trace_out")
     args = ap.parse_args()
@@ -78,20 +79,20 @@ def main():
     dev = torch.device("cuda")
     import chip_smoke
 
-    if args.model in ("ngnn-ss", "ngat-ss"):
+    if args.model.endswith("-ss"):
+        conv = args.model[:-3].upper()
+        keys = chip_smoke.sparse_keys(conv)
         pre = hodata.Sppretransform(partial(hodata.KhopSampler, hop=3),
-                                    [""], [KEY])
+                                    [""], keys)
         datas = [pre(g) for g in hodata.synthetic_zinc("train")]
-        batches = list(hodata.SpDataloader(datas, 128, [KEY], shuffle=True,
+        batches = list(hodata.SpDataloader(datas, 128, keys, shuffle=True,
                                            drop_last=True, seed=0,
                                            backward=True))
-        conv = args.model[:4].upper()
         model = chip_smoke.sparse_model(conv, dev)
         opt = models.make_optimizer(model, chip_smoke.TRAIN_LR)
         train_step, _ = models.make_sparse_steps()
         to_dict = hodata.batch_to_sparse_dict
-        kernel = {"NGNN": "spspmm_sum_kernel",
-                  "NGAT": "seg_att_kernel"}[conv]
+        kernel = "seg_att_kernel" if conv == "NGAT" else "spspmm_sum_kernel"
     elif args.model != "giant":
         conv = args.model[:4].upper()
         mode = args.model[5:7].upper()
@@ -267,6 +268,7 @@ def projections_vs_k4(model, batch, to_dict, dev, reps=20):
     for six layers."""
     from torch.profiler import ProfilerActivity, profile
 
+    from chip_smoke import KEY
     from pygho_tpu_torch.kernels.segment_attention import SegmentAttention
     from pygho_tpu_torch.honn.sp_operator import fetch_backward_orders
 

@@ -622,5 +622,7 @@ def test_ngat_refusals(what):
         with pytest.raises(NotImplementedError, match="edge values"):
             conv(A, X, {})
     else:
-        with pytest.raises(NotImplementedError, match=r"\['NGAT', 'NGNN'\]"):
-            make_sp_model("SSWL", device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match=r"\['DSSGNN', 'GNNAK', 'NGAT', 'NGNN', "
+                                 r"'PPGN', 'SSWL', 'SUN'\]"):
+            make_sp_model("I2GNN", device="cpu")

@@ -107,7 +107,7 @@ def test_entry_points_need_a_device_choice():
         SpPredictor(m, KhopSampler, parse_precomputekey(m), num_workers=2,
                     device="cpu")
     with pytest.raises(NotImplementedError):
-        make_sp_model("SSWL", device="cpu")
+        make_sp_model("I2GNN", device="cpu")
 
 
 def test_port_imports_nothing_of_jax():

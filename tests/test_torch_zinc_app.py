@@ -352,11 +352,18 @@ def test_zinc_gpu_cpu_run_writes_its_records(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--conv", "PPGN"],
                                   ["--conv", "NGNN", "--bf16"],
-                                  ["--sparse", "--conv", "NGAT"]])
+                                  ["--sparse", "--conv", "NGAT"],
+                                  ["--sparse", "--conv", "SSWL"],
+                                  ["--sparse", "--conv", "DSSGNN",
+                                   "--cpool", "sum"],
+                                  ["--sparse", "--conv", "GNNAK"],
+                                  ["--sparse", "--conv", "SUN", "--fused"],
+                                  ["--sparse", "--conv", "PPGN"]])
 def test_zinc_gpu_cpu_runs_each_ported_conv(tmp_path, argv):
-    """Dense PPGN, dense NGNN with bf16 compute and sparse NGAT, at 2x32
-    for one epoch: a finite test MAE, and the seed in the record name with
-    ``--seed0 1``."""
+    """Dense PPGN, dense NGNN with bf16 compute, and sparse NGAT, SSWL,
+    DSSGNN (with ``--cpool sum``), GNNAK, SUN (in the fast mode) and PPGN,
+    at 2x32 for one epoch: a finite test MAE, and the seed in the record
+    name with ``--seed0 1``."""
     with redirect_stdout(io.StringIO()):
         scores = zinc_gpu.main(_zinc_argv(tmp_path, *argv, "--seed0", "1"))
     assert len(scores) == 1 and np.isfinite(scores[0])
@@ -378,11 +385,13 @@ def test_zinc_gpu_reads_the_real_zinc_layout(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--sparse", "--conv", "SSWL"], "item 7"),
+    (["--sparse", "--conv", "I2GNN"], "item 7"),
     (["--conv", "GNNAK"], "item 9"),
+    (["--conv", "SSWL"], "item 9"),
     (["--sparse", "--aggr", "mean"], "item 6"),
     (["--sparse", "--conv", "NGAT", "--aggr", "max"], "item 8"),
     (["--sparse", "--lpool", "max"], "item 6"),
+    (["--sparse", "--conv", "SUN", "--cpool", "max"], "item 6"),
     (["--norm", "ln"], "item 6"),
     (["--dp", "0.1"], "item 6"),
     (["--sparse", "--remat"], "item 6"),
@@ -411,12 +420,58 @@ def test_zinc_gpu_refuses_as_the_jax_script(argv, capsys):
 
 def test_zinc_gpu_accepts_what_the_ported_convs_ignore():
     """As in JAX, the DD mode aggregates by sum whatever ``--aggr`` says,
-    and ``--cpool`` reaches no ported conv: both parse."""
+    and ``--cpool`` reaches no ported dense conv: both parse."""
     args = zinc_gpu.parse_args(["--conv", "NGNN", "--aggr", "max",
                                 "--cpool", "sum"])
     assert zinc_gpu.refusal(args) is None
     assert zinc_gpu.parse_args(["--sparse", "--conv", "NGAT", "--fused",
                                 "--bf16"]).bf16
+
+
+def test_zinc_gpu_ckpt_resumes_as_an_unbroken_run(tmp_path):
+    """``zinc_gpu.py --sparse --conv SUN --fused --cpool sum --ckpt DIR``
+    at 2x16 on 32 graphs: one epoch, then a second run of two epochs that
+    resumes after the checkpoint of epoch 1, give the two epochs' losses,
+    MAE and converged record of an unbroken two-epoch run bit for bit
+    (all but the epoch times), keep only the latest checkpoint, and append
+    to the same jsonl records; ``--cpool`` reaches SUN's cross-subgraph
+    pooling."""
+    base = ["--cpu", "--sparse", "--conv", "SUN", "--fused", "--cpool",
+            "sum", "--num_layer", "2", "--hiddim", "16", "--ntrain", "32",
+            "--bs", "16", "--mlplayer", "2", "--cache-dir",
+            str(tmp_path / "cache")]
+
+    def run(name, epochs, ckpt=None):
+        argv = base + ["--epochs", str(epochs), "--log-dir",
+                       str(tmp_path / name), "--converged-record",
+                       str(tmp_path / f"{name}.json")]
+        if ckpt:
+            argv += ["--ckpt", str(tmp_path / ckpt)]
+        models = []
+        with redirect_stdout(io.StringIO()):
+            rec = zinc_gpu.run_once(zinc_gpu.parse_args(argv), 0,
+                                    lambda e, r: models.append(r.model))
+        return rec, models
+
+    whole, models = run("whole", 2)
+    assert models[0].subggnns[0].pool2node.mod.pool == "sum"
+    run("parts", 1, "ck")
+    assert os.listdir(tmp_path / "ck" / "r0") == ["step_1"]
+    resumed, models = run("parts", 2, "ck")
+    assert len(models) == 1                    # epoch 2 alone ran
+    assert os.listdir(tmp_path / "ck" / "r0") == ["step_2"]
+    for rec in (whole, resumed):
+        rec.pop("sec_per_epoch_median")
+    assert resumed == whole
+
+    def epochs(name):
+        log = tmp_path / name / "zinc_gpu_sp_SUN_h3_r0.jsonl"
+        recs = [json.loads(line) for line in log.read_text().splitlines()]
+        return [(r["epoch"], r["trn_loss"], r["val_mae"], r["tst_mae"])
+                for r in recs if r["type"] == "epoch"], \
+            [r["type"] for r in recs].count("padding")
+
+    assert epochs("parts") == (epochs("whole")[0], 2)
 
 
 def test_minimal_gpu_ckpt_saves_and_resumes(tmp_path):
