@@ -110,13 +110,33 @@ Phases, each printing its wall seconds:
    precompute key a batch or step: 12 for SSWL (its NGNN key and the
    cross key ``X___A___1___X___0``), 6 for the others (PPGN-SS on the
    2-FWL key ``X___X___1___X___0``); each prints the share of its raw-
-   graph serving time that the host's precompute takes.
+   graph serving time that the host's precompute takes;
+23. I2GNN: I2GNN-SS 6x128 (its converged row's model settings,
+   ``SPARSE["I2GNN"]``: hop 3, mlplayer 2, outlayer 4, normparam 0.31, npool
+   sum, lpool mean) on the 3-tuples of ``I2Sampler(hop=3)``, in the exact
+   mode and in the fast mode (``set_fused_math(False)``, the mode of its
+   ``--fused`` row): served as phase 4 serves NGNN-SS (six K1 forward
+   launches a batch, on the key ``X___X___2___A___0``) and trained as
+   phase 5 trains it (each K1 role six times a step, twice, bitwise; the
+   CPU's losses over ``I2_CPU_STEPS`` steps), with its graphs/s, the host
+   precompute's share of the raw-graph serving time and the peak device
+   memory; then ``example/expressivity_gpu.py``'s count task in this
+   process (I2GNN 5x128 with the tuned flags of ``scripts/matrix_r5.sh``,
+   ``COUNT_EPOCHS`` epochs): K1's forward and dX roles and no other kernel
+   (the count graphs' adjacency has no values, so no dA role), finite
+   losses and validation MAE, the jsonl records.
 
 The kernels phase also holds K1's three f32 roles bit for bit against
 their plain version at SSWL's cross key (the edge values as the first
 operand, the dX role's rows the padded edges) and PPGN-SS's 2-FWL key
 (the largest K1 input of any path), with ``SpspmmSum``'s gradients, and
 times them beside ``k1_bound``.
+
+The kernels phase also holds K1's f32 and f32fast roles bit for bit
+against their plain versions at I2GNN's 3-tuple key ``X___X___2___A___0``
+on two batches: 128 graphs of ``synthetic_zinc("val")`` and 64 of
+``synthetic_subgraphcount()``, through ``I2Sampler(hop=3)``, with
+``SpspmmSum``'s gradients, and times them beside ``k1_bound``.
 
 The kernels phase holds every fast and bf16 variant of K1 and K4 (the
 roles of phase 3 with operands stored in f32 or bf16, in the exact or the
@@ -160,6 +180,9 @@ KEY = "X___X___1___A___0"
 # the 2-FWL key (PPGN-SS: both operands tuple values)
 CROSS_KEY = "X___A___1___X___0"
 FWL_KEY = "X___X___1___X___0"
+# I2GNN's 3-tuple key: the tuple values (i, j, k) times the edge values
+# (k, l) onto (i, j, l)
+I2_KEY = "X___X___2___A___0"
 SEED = 42                 # synthetic_zinc's seed, as in the JAX package
 MLPD = {"norm": "bn", "act": "silu", "dp": 0.0}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -211,12 +234,35 @@ SPARSE.update({conv: dict(num_layer=6, hiddim=128, aggr="sum", npool="sum",
                                               ("GNNAK", "sum", 0.31),
                                               ("SUN", "sum", 0.57),
                                               ("PPGN", "mean", 0.185))})
+# I2GNN-SS 6x128 as its converged JAX row trains it
+# (scripts/converged_matrix.sh: I2Sampler(hop=3), batch 128, aggr sum,
+# mlplayer 2, outlayer 4, npool sum, lpool mean, normparam 0.31), with
+# example/zinc_tpu.py's MLP settings, trained at TRAIN_LR (phase 23)
+SPARSE["I2GNN"] = dict(num_layer=6, hiddim=128, aggr="sum", npool="sum",
+                       lpool="mean", outlayer=4,
+                       mlp={"dp": 0.0, "norm": "bn", "act": "silu",
+                            "normparam": 0.31, "numlayer": 2,
+                            "tailact": True})
 # the kernel source each sparse configuration's layers launch, for each
 # role once a layer and precompute key
 SPARSE_SOURCE = {"NGNN": "spspmm_sum.cu", "NGAT": "segment_attention.cu",
+                 "I2GNN": "spspmm_sum.cu",
                  **{conv: "spspmm_sum.cu" for conv in SUBGRAPH_CONVS}}
 # each sparse configuration's precompute keys, NGNN's KEY unless given
-SPARSE_KEYS = {"SSWL": [CROSS_KEY, KEY], "PPGN": [FWL_KEY]}
+SPARSE_KEYS = {"SSWL": [CROSS_KEY, KEY], "PPGN": [FWL_KEY],
+               "I2GNN": [I2_KEY]}
+# the CPU repeats this many of I2GNN's ten steps (98,304 padded 3-tuple
+# rows a batch through six layers of the plain K1 and the MLPs)
+I2_CPU_STEPS = 2
+# the count entry point of phase 23: example/expressivity_gpu.py with the
+# tuned flags of scripts/matrix_r5.sh's count run (I2GNN 5x128, batch 64),
+# cut to COUNT_EPOCHS epochs
+COUNT_ARGS = ["--dataset", "count", "--conv", "I2GNN", "--target",
+              "triangle", "--hiddim", "128", "--num_layer", "5", "--bs",
+              "64", "--lr", "3.4e-3", "--cosT", "26", "--minlr", "2.03e-5",
+              "--wd", "3.7e-2", "--K", "0.011", "--K2", "0.0073",
+              "--normparam", "0.31"]
+COUNT_EPOCHS = 2
 # the CPU repeats this many of a subgraph conv's ten steps (PPGN-SS's plain
 # K1 gathers several times NGNN's triples a contraction)
 SUBGRAPH_CPU_STEPS = 2
@@ -344,7 +390,12 @@ K4_FAST_GRAD_RTOL = 2 ** -5
 # the other way and moves by one bf16 step, up to 2^-7 of itself; the CPU
 # run with every norm's sums reordered moves a fast-mode step's loss by
 # 2e-6 (scripts/fast_mode_tolerances.py); ten times SERVE_TOL leaves room
-# for such flips through six layers
+# for such flips through six layers.  Served in the fast mode with every
+# Linear summed by halves or in f64, the CPU's own predictions move by
+# 6.1e-4 / 8.7e-4 (NGNN-SS) and 5.7e-4 / 8.2e-4 (I2GNN-SS), and the card's
+# lay 5.1e-4 and 4.7e-4 from the CPU's (H100, PyTorch 2.11; --runs
+# SERVEFAST-NGNN,SERVEFAST-I2GNN there): I2GNN's rounding is no wider than
+# NGNN's, and both sit under this limit
 FAST_SERVE_TOL = 1e-3
 # the CPU repeats this many of the bf16 model's ten steps
 BF16_CPU_STEPS = 3
@@ -385,6 +436,8 @@ TRAIN_TOLS = {("NGNN", "f32"): (CPU_STEPS, TRAIN_RTOL),
               ("NGNN", "f32fast"): (CPU_STEPS, TRAIN_RTOL),
               ("NGNN", "bf16fast"): (BF16_CPU_STEPS, BF16_TRAIN_RTOL),
               ("NGAT", "f32fast"): (NGAT_CPU_STEPS, NGAT_FAST_TRAIN_RTOL),
+              ("I2GNN", "f32"): (I2_CPU_STEPS, TRAIN_RTOL),
+              ("I2GNN", "f32fast"): (I2_CPU_STEPS, TRAIN_RTOL),
               **{(conv, "f32"): (SUBGRAPH_CPU_STEPS, TRAIN_RTOL)
                  for conv in SUBGRAPH_CONVS}}
 
@@ -393,6 +446,14 @@ def sparse_keys(conv):
     """The precompute keys of the sparse configuration ``conv``, sorted as
     ``parse_precomputekey`` gives them."""
     return SPARSE_KEYS.get(conv, [KEY])
+
+
+def sparse_sampler(conv):
+    """The tuple sampler of the sparse configuration ``conv`` at hop 3:
+    ``I2Sampler`` for I2GNN's 3-tuples, ``KhopSampler`` else."""
+    from pygho_tpu_torch.hodata import I2Sampler, KhopSampler
+
+    return partial(I2Sampler if conv == "I2GNN" else KhopSampler, hop=3)
 
 
 def phase(name):
@@ -513,15 +574,16 @@ def check_launch_failure(role, call):
 
 
 def check_k1(datas, dev, rng, flush, dtype=None, exact=True, key=KEY,
-             edge_cases=True):
+             edge_cases=True, batch_size=128, label=None):
     """K1's three roles, in the variant of operands stored as ``dtype``
     (f32 unless given) in the math mode ``exact``, at the shapes the
-    precompute ``key`` gives one 128-graph batch of ``datas`` (NGNN's
-    unless given; ``datas`` preprocessed with it) and, with
+    precompute ``key`` gives one ``batch_size``-graph batch of ``datas``
+    (NGNN's unless given; ``datas`` preprocessed with it) and, with
     ``edge_cases``, on edge cases, against their plain version on the
     card, and ``SpspmmSum``'s gradients against autograd through the
     plain version; for a fast or bf16 variant also a refused launch.
-    Returns the roles' lines of the report."""
+    ``label`` names the shape in the output.  Returns the roles' lines of
+    the report."""
     import numpy as np
     import torch
 
@@ -531,7 +593,8 @@ def check_k1(datas, dev, rng, flush, dtype=None, exact=True, key=KEY,
 
     dtype = dtype or torch.float32
     variant = {r: r.variant(dtype, exact) for r in k1.ROLES}
-    batch = next(iter(SpDataloader(datas, 128, [key], backward=True)))
+    batch = next(iter(SpDataloader(datas, batch_size, [key],
+                                   backward=True)))
     nt, n_t = batch["tupleid"].shape[1], int(batch["num_tuples"])
     D = 128
 
@@ -562,7 +625,7 @@ def check_k1(datas, dev, rng, flush, dtype=None, exact=True, key=KEY,
     main = {k1.FWD: (*stored(k1.FWD, U, V), t["acd"], t["rowptr"]),
             k1.DX: (*stored(k1.DX, g, V), t["acd_dx"], t["rowptr_dx"]),
             k1.DA: (*stored(k1.DA, U, g), t["acd_da"], t["rowptr_da"])}
-    shape = "main shape" if key == KEY else f"{key} shape"
+    shape = label or ("main shape" if key == KEY else f"{key} shape")
 
     def compare(role, U, V, tuv, rowptr):
         """Kernel vs plain version: (max abs error, max error over its
@@ -831,7 +894,6 @@ def serve(graphs, rng, dev, conv="NGNN"):
     import numpy as np
     import torch
 
-    from pygho_tpu_torch.hodata import KhopSampler
     from pygho_tpu_torch.honn import parse_precomputekey
     from pygho_tpu_torch.kernels import KERNELS, get_fused_math
     from pygho_tpu_torch.models import SpPredictor
@@ -841,7 +903,7 @@ def serve(graphs, rng, dev, conv="NGNN"):
     keys = parse_precomputekey(model)
     if keys != sparse_keys(conv):
         raise AssertionError(f"unexpected precompute keys {keys}")
-    sampler = partial(KhopSampler, hop=3)
+    sampler = sparse_sampler(conv)
     predictor = SpPredictor(model, sampler, keys, batch_size=128,
                             num_workers=0, device=dev)
     datas = predictor.preprocess(graphs)
@@ -903,8 +965,9 @@ def serve(graphs, rng, dev, conv="NGNN"):
     t0 = time.perf_counter()
     predictor.preprocess(graphs)
     host_s = time.perf_counter() - t0
-    print(f"host precompute of {len(graphs)} raw graphs (KhopSampler, "
-          f"spspmm_ind for {keys}): {host_s:.3f} s, {host_s / raw_s:.1%} of "
+    print(f"host precompute of {len(graphs)} raw graphs "
+          f"({sampler.func.__name__}, spspmm_ind for {keys}): {host_s:.3f} "
+          f"s, {host_s / raw_s:.1%} of "
           f"the raw-graph serving wall time {raw_s:.3f} s")
     reps = 5
     t0 = time.perf_counter()
@@ -977,15 +1040,15 @@ def training(card, dev, conv="NGNN", dtype=None):
     of the first training run."""
     import torch
 
-    from pygho_tpu_torch.hodata import (KhopSampler, SpDataloader,
-                                        Sppretransform, synthetic_zinc)
+    from pygho_tpu_torch.hodata import (SpDataloader, Sppretransform,
+                                        synthetic_zinc)
     from pygho_tpu_torch.kernels import KERNELS, get_fused_math
 
     exact = get_fused_math()
 
     t0 = time.perf_counter()
     keys = sparse_keys(conv)
-    pre = Sppretransform(partial(KhopSampler, hop=3), [""], keys)
+    pre = Sppretransform(sparse_sampler(conv), [""], keys)
     datas = [pre(g) for g in synthetic_zinc("train", seed=SEED)]
     loader = SpDataloader(datas, 128, keys, shuffle=True, drop_last=True,
                           seed=0, backward=True)
@@ -2112,6 +2175,76 @@ def zinc_entry(card, dev):
     return launches
 
 
+def count_entry(card, dev):
+    """``example/expressivity_gpu.py``'s count task in this process: I2GNN
+    5x128 with the tuned flags (``COUNT_ARGS``) for ``COUNT_EPOCHS``
+    epochs, its cache and records in a temporary directory.  Checks: K1's
+    f32 forward and dX roles and no other kernel (the count graphs have no
+    edge features, so the adjacency has no values and no dA role runs),
+    five dX launches a training step and five forward launches a training
+    step and validation batch; finite losses and validation MAE; an epoch
+    record a epoch.  Returns the launches of the run."""
+    import tempfile
+
+    import torch
+
+    from pygho_tpu_torch.kernels import KERNELS
+    from pygho_tpu_torch.kernels import spspmm_sum as k1
+
+    sys.path.insert(0, str(REPO / "example"))
+    import expressivity_gpu
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        args = expressivity_gpu.parse_args(
+            COUNT_ARGS + ["--epochs", str(COUNT_EPOCHS), "--cache-dir",
+                          str(tmp / "cache"), "--log-dir", str(tmp)])
+        t0 = time.perf_counter()
+        run = expressivity_gpu.CountRun(args)
+        setup_s = time.perf_counter() - t0
+        sync()
+        for mod in KERNELS:
+            mod.launches = 0
+        t0 = time.perf_counter()
+        rec = run.run()
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = {mod.NAME: mod.launches for mod in KERNELS}
+        with open(tmp / "expr_gpu_count_triangle_I2GNN.jsonl") as f:
+            lines = [json.loads(line) for line in f]
+    ran = {k: v for k, v in launches.items() if v}
+    layers = args.num_layer
+    width = f"I2GNN {layers}x{args.hiddim}"
+    steps = COUNT_EPOCHS * len(run.trn)
+    fwd, dx = (r.variant(torch.float32, True).NAME for r in (k1.FWD, k1.DX))
+    want = {fwd: layers * (steps + COUNT_EPOCHS * len(run.val)),
+            dx: layers * steps}
+    losses = [h["loss"] for h in run.history]
+    print(f"expressivity_gpu.py count {width}, {len(run.trn.dataset)} "
+          f"training and {len(run.val.dataset)} validation graphs, "
+          f"{COUNT_EPOCHS} epochs ({steps} steps) in {run_s:.3f} s after a "
+          f"set-up of {setup_s:.3f} s (preprocessing included); epoch times "
+          f"{[round(h['secs'], 3) for h in run.history]} s; losses "
+          f"{losses}; validation MAE {[h['mae'] for h in run.history]}, "
+          f"best {rec['best_val_mae']} at epoch {rec['best_val_epoch']}; "
+          f"kernel launches {ran}")
+    if ran != want:
+        raise AssertionError(f"the count run launched {ran}, expected "
+                             f"{want}")
+    if not all(math.isfinite(x) for x in losses) or not math.isfinite(
+            rec["best_val_mae"]):
+        raise AssertionError(f"non-finite loss or MAE: {losses}, {rec}")
+    if [(r["type"], r["epoch"]) for r in lines] != [
+            ("epoch", e) for e in range(1, COUNT_EPOCHS + 1)]:
+        raise AssertionError(f"jsonl records {lines}")
+    trained = len(run.trn.dataset)
+    print(f"count entry point ({width}, f32) on {card}: "
+          f"{trained / run.history[-1]['secs']:.1f} graphs/s trained and "
+          f"validated in epoch {COUNT_EPOCHS} "
+          f"({run.history[-1]['secs']:.3f} s, collation included)")
+    return launches
+
+
 def dense_name(conv="PPGN", mode="DD", dtype=None, plans=False):
     """A dense path's name in the output: conv, mode, width, variant and,
     in SD mode, the route of its contraction."""
@@ -2407,6 +2540,7 @@ def main():
     set_parity_numerics()
     from pygho_tpu_torch.hodata import (KhopSampler, Mapretransform,
                                         Sppretransform, spdsampler,
+                                        synthetic_subgraphcount,
                                         synthetic_zinc)
 
     graphs = synthetic_zinc("val", seed=SEED)
@@ -2427,6 +2561,19 @@ def main():
               f"{time.perf_counter() - t1:.3f} s on the host")
         check_k1(key_datas, dev, rng, flush_buf.zero_, key=key,
                  edge_cases=False)
+    # K1's f32 and f32fast roles at I2GNN's 3-tuple key, on a 128-graph
+    # ZINC batch and a 64-graph batch of the count task
+    i2_pre = Sppretransform(sparse_sampler("I2GNN"), [""], [I2_KEY])
+    for what, source, bs in (("ZINC", graphs, 128),
+                             ("count", synthetic_subgraphcount()[:64], 64)):
+        t1 = time.perf_counter()
+        i2_datas = [i2_pre(g) for g in source]
+        print(f"{I2_KEY} ({what}): {len(source)} graphs preprocessed in "
+              f"{time.perf_counter() - t1:.3f} s on the host")
+        for exact in (True, False):
+            check_k1(i2_datas, dev, rng, flush_buf.zero_, exact=exact,
+                     key=I2_KEY, edge_cases=False, batch_size=bs,
+                     label=f"{I2_KEY} {what} shape")
     dense_pre = Mapretransform(partial(spdsampler, hop=DENSE_HOP))
     dense_datas = [dense_pre(g) for g in graphs]
     report += check_k5(dense_datas, dev, rng, flush_buf.zero_)
@@ -2561,11 +2708,26 @@ def main():
               f"{time.perf_counter() - t1:.3f} s")
     done("subgraph convs", t0)
 
+    t0 = phase("I2GNN")
+    i2_launches = []
+    for exact in (True, False):
+        name = f"I2GNN-SS 6x128 ({mode_name(exact=exact)})"
+        with math_mode(exact):
+            raw_gps, pre_gps, conv_launches = serve(graphs, rng, dev,
+                                                    "I2GNN")
+            print(f"{name} serving on {card}: {raw_gps:.1f} graphs/s from "
+                  f"raw graphs (host precompute included), {pre_gps:.1f} "
+                  f"graphs/s from preprocessed graphs")
+            i2_launches += [conv_launches, training(card, dev, "I2GNN")]
+    i2_launches.append(count_entry(card, dev))
+    done("I2GNN", t0)
+
     # launches: each main path's run (NGNN serving and training, dense
     # serving and training, NGAT serving and training, giant-graph
     # training, the fast and bf16 runs, the NGNN dense runs, the giant
-    # graph's fast training, the ZINC entry point and the subgraph convs'
-    # serving and training), each counted from 0 just before the path and
+    # graph's fast training, the ZINC entry point, the subgraph convs'
+    # serving and training, I2GNN's serving and training in both modes and
+    # the count entry point), each counted from 0 just before the path and
     # read just after
     runs = (launches, train_launches, dense_launches, dense_train_launches,
             ngat_launches, ngat_train_launches, giant_launches,
@@ -2573,7 +2735,7 @@ def main():
             ngat_fast_launches, ngnn_dd_launches, ngnn_dd_train_launches,
             ngnn_bf16_train_launches, ngnn_sd_launches, sd_densify_launches,
             sd_fused_launches, giant_fast_launches, zinc_launches,
-            *subgraph_launches)
+            *subgraph_launches, *i2_launches)
     for line in report:
         line["launches"] = sum(run[line["name"]] for run in runs)
     unlaunched = [line["name"] for line in report if not line["launches"]

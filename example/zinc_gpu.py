@@ -7,13 +7,16 @@ Run examples:
   python example/zinc_gpu.py --sparse --conv NGAT
   python example/zinc_gpu.py --sparse --conv SUN --fused   (also SSWL,
                                     DSSGNN, GNNAK, PPGN in sparse mode)
+  python example/zinc_gpu.py --sparse --conv I2GNN --fused (3-tuples,
+                                    I2Sampler(hop=--hop))
   python example/zinc_gpu.py --conv PPGN            (dense / DD mode)
   python example/zinc_gpu.py --conv NGNN --bf16     (dense / DD mode)
   python example/zinc_gpu.py --cpu ...              (on the CPU)
 
 It trains on the CUDA card unless ``--cpu`` is given; with no card and no
-``--cpu`` it raises.  The port runs the sparse NGNN, NGAT, SSWL, DSSGNN,
-GNNAK, SUN and PPGN convs (``--cpool`` reaches DSSGNN, GNNAK and SUN)
+``--cpu`` it raises.  The port runs every sparse conv (NGNN, NGAT, SSWL,
+DSSGNN, GNNAK, SUN, PPGN, and I2GNN on the 3-tuples of
+``I2Sampler(hop=--hop)``; ``--cpool`` reaches DSSGNN, GNNAK and SUN)
 and the dense PPGN and NGNN (DD) convs, with ``--fused`` (the fast numerics
 mode of the sparse kernels, ``set_fused_math(False)``), ``--bf16``
 (bf16 compute over f32 parameters), ``--repeat``/``--seed0``,
@@ -58,7 +61,6 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-SPARSE_CONVS = ("NGNN", "NGAT", "SSWL", "DSSGNN", "GNNAK", "SUN", "PPGN")
 DENSE_CONVS = ("NGNN", "PPGN")
 
 
@@ -150,8 +152,6 @@ def refusal(args) -> Optional[str]:
     if args.conv == "I2GNN" and not args.sparse:
         return ("I2GNN needs 3-tuple features; the dense pipeline's "
                 "spdsampler emits 2-tuples - add --sparse")
-    if args.sparse and args.conv not in SPARSE_CONVS:
-        return f"--sparse --conv {args.conv} {roadmap} 7)"
     if not args.sparse and args.conv not in DENSE_CONVS:
         return f"dense --conv {args.conv} {roadmap} 9)"
     if args.sparse and args.aggr != "sum":
@@ -213,7 +213,8 @@ class ZincRun:
     def __init__(self, args: argparse.Namespace, rep: int):
         import torch
 
-        from pygho_tpu_torch.hodata import (KhopSampler, MaDataloader,
+        from pygho_tpu_torch.hodata import (I2Sampler, KhopSampler,
+                                            MaDataloader,
                                             Mapretransform,
                                             ParallelPreprocessDataset,
                                             SpDataloader, Sppretransform,
@@ -239,8 +240,8 @@ class ZincRun:
                 cpool=args.cpool, outlayer=args.outlayer, mlp=mlpdict,
                 seed=rep, dtype=dtype, device=device)
             keys = parse_precomputekey(self.model)
-            pre = Sppretransform(partial(KhopSampler, hop=args.hop), [""],
-                                 keys)
+            sampler = I2Sampler if args.conv == "I2GNN" else KhopSampler
+            pre = Sppretransform(partial(sampler, hop=args.hop), [""], keys)
             self.tag = f"sp_{args.conv}_h{args.hop}"
         else:
             self.model = make_ma_model(

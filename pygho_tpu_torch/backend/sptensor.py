@@ -110,11 +110,62 @@ class SparseTensor:
         return segment_reduce(self.values, self.indices[d],
                               self.sparse_shape[d], reduce)
 
-    def sum(self, dims) -> torch.Tensor:
-        return self._reduce_to_dense(dims, "sum")
+    def _reduce_to_sparse(self, dims: Union[int, Sequence[int]],
+                          reduce: str, seg_ids: torch.Tensor,
+                          tar_indices: torch.Tensor,
+                          tar_nnz: int) -> "SparseTensor":
+        """Reduce over sparse ``dims`` onto a host-built target pattern
+        (reference SpTensor.py:368-380): row ``r`` goes to the target row
+        ``seg_ids[r]``, and a row whose id is out of range (``PAD_INDEX``
+        padding) is dropped, as the JAX package's segment sum drops it.
+        The dropped rows are zeroed and summed under ids spread over the
+        target rows rather than all under one spare id: in the parity
+        mode PyTorch's deterministic ``index_add_`` adds the rows of one
+        id one after another, and a batch has thousands of padded
+        3-tuples.  ``mean`` divides by the count of kept rows."""
+        dims = [dims] if isinstance(dims, int) else list(dims)
+        keep = [i for i in range(self.sparse_dim) if i not in dims]
+        n = tar_indices.shape[1]
+        seg_ids = seg_ids.long()
+        kept = (seg_ids >= 0) & (seg_ids < n)
+        ids = torch.where(kept, seg_ids,
+                          torch.arange(self.nnz_pad, device=seg_ids.device)
+                          % max(n, 1))
+        vals = torch.where(_expand_mask(kept, self.values.dim()),
+                           self.values, 0.0)
+        out = segment_reduce(vals, ids, n, "sum")
+        if reduce == "mean":
+            cnt = segment_reduce(kept.to(out.dtype), ids, n, "sum")
+            out = out / cnt.clamp_min(1).reshape(
+                (-1,) + (1,) * (out.dim() - 1))
+        return SparseTensor(indices=tar_indices, values=out, nnz=tar_nnz,
+                            sparse_shape=tuple(self.sparse_shape[d]
+                                               for d in keep))
 
-    def mean(self, dims) -> torch.Tensor:
-        return self._reduce_to_dense(dims, "mean")
+    def _reduce(self, dims, reduce: str, return_sparse: bool, seg_ids,
+                tar_indices, tar_nnz):
+        if not return_sparse:
+            return self._reduce_to_dense(dims, reduce)
+        if seg_ids is None or tar_indices is None or tar_nnz is None:
+            raise ValueError("sparse-output pooling needs the host-built "
+                             "seg_ids, tar_indices and tar_nnz (the "
+                             "datadict's pool keys)")
+        return self._reduce_to_sparse(dims, reduce, seg_ids, tar_indices,
+                                      tar_nnz)
+
+    def sum(self, dims, return_sparse: bool = False, seg_ids=None,
+            tar_indices=None, tar_nnz=None):
+        """Sum over sparse ``dims``: a dense tensor over the one dim left,
+        or with ``return_sparse`` a SparseTensor on the target pattern
+        (:meth:`_reduce_to_sparse`)."""
+        return self._reduce(dims, "sum", return_sparse, seg_ids,
+                            tar_indices, tar_nnz)
+
+    def mean(self, dims, return_sparse: bool = False, seg_ids=None,
+             tar_indices=None, tar_nnz=None):
+        """Mean over sparse ``dims``, as :meth:`sum`."""
+        return self._reduce(dims, "mean", return_sparse, seg_ids,
+                            tar_indices, tar_nnz)
 
     def diag_to_dense(self) -> torch.Tensor:
         """The full diagonal as a dense ``[sparse_shape[0], *dense]``
@@ -153,19 +204,24 @@ class SparseTensor:
     def unpooling_fromdense1dim(self, dims: int,
                                 X: torch.Tensor) -> "SparseTensor":
         """Broadcast a dense per-index tensor onto this pattern (reference
-        SpTensor.py:470-476): ``out.values[r] = X[indices[dims, r]]``.  The
-        index is clamped into ``X``'s rows, as JAX clamps a gather, and the
-        padding rows are re-zeroed.  The padding rows gather rows spread
-        over ``X`` rather than all the last one (JAX's clamp): their values
-        are re-zeroed either way, but the gather's backward is PyTorch's
-        sorted ``index_put_``, which adds the rows of one index one after
-        another."""
+        SpTensor.py:470-476): ``out.values[r] = X[indices[dims, r]]``,
+        gathered at :meth:`gather_ids`, with the padding rows re-zeroed."""
+        return self.tuplewiseapply(lambda _: X[self.gather_ids(dims,
+                                                               X.shape[0])])
+
+    def gather_ids(self, dims: int, rows: int) -> torch.Tensor:
+        """The index of a gather of ``rows``-row values at ``indices[dims]``
+        whose padding rows are re-zeroed afterwards: a real row's index
+        clamped into range, as JAX clamps a gather index, and the padding
+        rows' spread over the ``rows`` rows rather than all clamped to the
+        last one.  The values gathered for padding do not matter, but the
+        gather's backward is PyTorch's sorted ``index_put_``, which adds
+        the rows of one index one after another."""
         if not 0 <= dims < self.sparse_dim:
             raise ValueError(f"dims {dims} is not a sparse dim of a "
                              f"{self.sparse_dim}-D tensor")
-        rows = X.shape[0]
-        spread = torch.arange(self.nnz_pad, device=X.device) % rows
-        idx = torch.where(self.rowmask,
-                          torch.clamp(self.indices[dims], max=rows - 1),
-                          spread)
-        return self.tuplewiseapply(lambda _: X[idx])
+        spread = torch.arange(self.nnz_pad, device=self.indices.device) \
+            % rows
+        return torch.where(self.rowmask,
+                           torch.clamp(self.indices[dims], max=rows - 1),
+                           spread)

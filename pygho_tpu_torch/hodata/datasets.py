@@ -1,4 +1,5 @@
-"""Dataset loaders (port of ``synthetic_zinc`` and ``load_zinc`` from
+"""Dataset loaders (port of ``synthetic_zinc``, ``load_zinc``,
+``count_substructures`` and ``synthetic_subgraphcount`` from
 ``pygho_tpu/hodata/datasets.py``).
 
 - ``synthetic_zinc`` is a deterministic molecule-like random graph set
@@ -7,6 +8,9 @@
   both draw from one ``numpy.random.Generator`` in the same order.
 - ``load_zinc`` reads the real ZINC from its raw files on disk; nothing
   is fetched.
+- ``synthetic_subgraphcount`` is the substructure-counting set (random
+  graphs, exact counts as targets), the same graphs and targets as the
+  JAX package's for a seed.
 """
 
 from __future__ import annotations
@@ -128,4 +132,73 @@ def load_zinc(root: str, split: str = "train",
         ei = np.stack([src[order], dst[order]]).astype(np.int64)
         ea = adj[ei[0], ei[1]].astype(np.int64)
         graphs.append(Graph(x=x, edge_index=ei, edge_attr=ea, y=y))
+    return graphs
+
+
+SUBSTRUCTURES = ("triangle", "tailed_triangle", "star", "cycle4",
+                 "cycle5", "chordal")
+
+
+def count_substructures(adj: np.ndarray) -> dict:
+    """Exact non-induced subgraph counts of the six substructures of the
+    subgraph-count benchmarks (Chen et al., "Can Graph Neural Networks
+    Count Substructures?"; also the I2-GNN counting suite): triangle,
+    tailed triangle, 3-star, 4-cycle, 5-cycle and chordal cycle, in closed
+    forms over the adjacency matrix ``adj`` (dense, symmetric, no self
+    loops)."""
+    A = adj.astype(np.float64)
+    d = A.sum(1)
+    m = d.sum() / 2.0
+    A2 = A @ A
+    A3 = A2 @ A
+    tri_v = np.diag(A3) / 2.0          # triangles through each vertex
+    triangle = tri_v.sum() / 3.0
+    tailed = float((tri_v * (d - 2.0)).sum())
+    star = float((d * (d - 1.0) * (d - 2.0) / 6.0).sum())
+    # closed 4-walks: tr(A^4) = 2 * sum(d^2) - 2m + 8 * C4
+    cycle4 = (np.trace(A3 @ A) - 2.0 * (d * d).sum() + 2.0 * m) / 8.0
+    cycle5 = (np.trace(A3 @ A2) - 5.0 * np.trace(A3)
+              - 5.0 * ((d - 2.0) * np.diag(A3)).sum()) / 10.0
+    common = A2 * A                    # common neighbours across each edge
+    chordal = float((common * (common - 1.0) / 2.0).sum() / 2.0)
+    return {"triangle": float(triangle), "tailed_triangle": tailed,
+            "star": star, "cycle4": float(cycle4),
+            "cycle5": float(cycle5), "chordal": chordal}
+
+
+def synthetic_subgraphcount(n_graphs: int = 512, seed: int = 3,
+                            n_lo: int = 10, n_hi: int = 30,
+                            target: str = "triangle") -> List[Graph]:
+    """The substructure-counting set: ``n_graphs`` random graphs of
+    ``n_lo`` to ``n_hi`` nodes, each pair joined with a probability drawn
+    from [0.1, 0.3) per graph, with their exact substructure counts as
+    the regression target.  ``target`` is one of :data:`SUBSTRUCTURES`
+    or ``"all"`` (a 6-task regression); the triangle target is divided by
+    10, the others by their standard deviation over the set."""
+    if target != "all" and target not in SUBSTRUCTURES:
+        raise ValueError(f"unknown target {target!r}; "
+                         f"choose from {SUBSTRUCTURES + ('all',)}")
+    names = SUBSTRUCTURES if target == "all" else (target,)
+    rng = np.random.default_rng(seed)
+    graphs, counts = [], []
+    for _ in range(n_graphs):
+        n = int(rng.integers(n_lo, n_hi + 1))
+        p = float(rng.uniform(0.1, 0.3))
+        adj = np.triu(rng.random((n, n)) < p, 1)
+        adj = adj | adj.T
+        ei = np.stack(np.nonzero(adj)).astype(np.int64)
+        if ei.shape[1] == 0:        # graphs without edges are left out
+            continue
+        c = count_substructures(adj)
+        counts.append([c[k] for k in names])
+        graphs.append(Graph(x=np.zeros((n, 1), dtype=np.int64),
+                            edge_index=ei, edge_attr=None, y=None))
+    counts = np.asarray(counts, dtype=np.float64)
+    if target == "triangle":
+        scale = np.array([10.0])
+    else:
+        scale = np.maximum(counts.std(axis=0), 1e-8)
+    ys = (counts / scale).astype(np.float32)
+    for g, y in zip(graphs, ys):
+        g.y = y
     return graphs

@@ -17,7 +17,7 @@ import torch
 from ..backend import indexing
 from ..backend.indexing import PAD_INDEX
 from ..backend.sptensor import SparseTensor
-from ..honn.sp_operator import KEYSEP
+from ..honn.sp_operator import KEYSEP, pool_keys
 from .graph import Graph
 
 # ----------------------------------------------------------------- parsing
@@ -42,6 +42,12 @@ def parsekey(key: str) -> Tuple[str, str, int, str, int]:
     for op in (op0, op1, op2):
         parseop(op)
     return op0, op1, int(dim1), op2, int(dim2)
+
+
+def _pool2_keys(ann: str) -> Tuple[str, str]:
+    """The datadict keys of the 3-tuples' pooling onto the edge pattern:
+    its segment map and its target."""
+    return pool_keys(f"X{ann}", 2)
 
 
 def _op_indices(datadict: Dict, op: str) -> np.ndarray:
@@ -78,6 +84,8 @@ def sp_datapreprocess(
         datadict[f"tuplefeat{ann}"] = out["tuplefeat"]
         datadict[f"tupleshape{ann}"] = out["tupleshape"]
         datadict[f"num_tuples{ann}"] = out["tupleid"].shape[1]
+        if "pool2_seg" in out:  # 3-tuple -> edge-pattern pooling map
+            datadict[_pool2_keys(ann)[0]] = out["pool2_seg"]
     for key in keys:
         if not key:
             continue
@@ -172,6 +180,14 @@ def collate_sparse(
         tf = np.concatenate([d[f"tuplefeat{ann}"] for d in datas], axis=0)
         out[f"tuplefeat{ann}"] = indexing.pad_values(tf, T_pad)
         out[f"num_tuples{ann}"] = np.int32(T)
+        segk = _pool2_keys(ann)[0]
+        if segk in datas[0]:
+            # parent edges, offset by the edges of the graphs before
+            seg = np.concatenate(
+                [d[segk] + edge_off[g] for g, d in enumerate(datas)])
+            segp = np.full((T_pad,), PAD_INDEX, dtype=np.int32)
+            segp[:T] = seg
+            out[segk] = segp
 
     # acd triples per key
     counts = {}
@@ -203,9 +219,11 @@ def collate_sparse(
 _LONG_INDEX = ("edge_index", "batch")
 
 
-def _to_tensor(name: str, v: np.ndarray, device: torch.device):
+def _to_tensor(name: str, v: np.ndarray, device: torch.device,
+               seg_keys: Sequence[str]):
     t = torch.from_numpy(np.ascontiguousarray(v))
-    if name in _LONG_INDEX or name.startswith("tupleid"):
+    if name in _LONG_INDEX or name.startswith("tupleid") \
+            or name in seg_keys:
         t = t.long()
     return t.to(device)
 
@@ -216,15 +234,20 @@ def batch_to_sparse_dict(batch: Dict[str, Any],
     """Move a collated batch onto ``device`` and wrap its arrays into
     SparseTensors (reference batch2sparse, SpData.py:80-112).
 
-    Produces a datadict with "A" and "X{ann}" SparseTensors.  Every other
+    Produces a datadict with "A" and "X{ann}" SparseTensors, and for
+    3-tuples the pooling target ``X{ann}pool___2___tarX``: the adjacency
+    pattern, onto whose rows the ``X{ann}pool___2___seg`` map (an int64
+    index, as ``tupleid``) pools them.  Every other
     array is passed through as a tensor on ``device`` and every scalar
     count as a Python int.  Index arrays used by PyTorch gathers become
     int64; the kernels' ``___acd``/``___rowptr`` arrays stay int32.
     """
     dd: Dict[str, Any] = {}
+    pool2 = {ann: _pool2_keys(ann) for ann in annotate}
+    seg_keys = [segk for segk, _ in pool2.values()]
     for k, v in batch.items():
         if isinstance(v, np.ndarray) and v.ndim > 0:
-            dd[k] = _to_tensor(k, v, device)
+            dd[k] = _to_tensor(k, v, device, seg_keys)
         elif isinstance(v, (np.integer, int)) or (
                 isinstance(v, np.ndarray) and v.dtype.kind in "iu"):
             dd[k] = int(v)
@@ -245,4 +268,9 @@ def batch_to_sparse_dict(batch: Dict[str, Any],
             nnz=int(batch[f"num_tuples{ann}"]),
             sparse_shape=(n_pad,) * tid.shape[0],
         )
+        segk, tark = pool2[ann]
+        if segk in batch:
+            dd[tark] = SparseTensor(
+                indices=dd["A"].indices, values=None, nnz=dd["A"].nnz,
+                sparse_shape=(n_pad, n_pad))
     return dd

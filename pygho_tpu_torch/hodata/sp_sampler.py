@@ -1,4 +1,5 @@
-"""Sparse tuple sampler (port of ``pygho_tpu/hodata/sp_sampler.py``).
+"""Sparse tuple samplers (port of ``KhopSampler`` and ``I2Sampler`` from
+``pygho_tpu/hodata/sp_sampler.py``).
 
 Vectorised with scipy all-pairs shortest paths (BFS distance equals the
 unweighted shortest-path distance).  Output index arrays come out
@@ -40,4 +41,30 @@ def KhopSampler(graph: Graph, hop: int = 2) -> Dict[str, np.ndarray]:
         "tuplefeat": feat,
         "tupleshape": np.array([graph.num_nodes, graph.num_nodes],
                                dtype=np.int64),
+    }
+
+
+def I2Sampler(graph: Graph, hop: int = 3) -> Dict[str, np.ndarray]:
+    """Per-edge 3-tuples for I2-GNN (reference SpTupleSampler.py:129-174):
+    for each directed edge (u, v), the tuples (u, v, w) for every w within
+    ``hop`` of u or of v; feature = (SPD(u, w), SPD(v, w)), an infinite
+    distance (w reached from one end only) clamped to ``hop + 2``.
+
+    Besides the fragment :func:`KhopSampler` returns (``tupleid`` of 3
+    rows, ``tuplefeat`` ``(nt, 2)``), it gives ``pool2_seg`` ``(nt,)``:
+    the index of each tuple's parent edge, the map that pools the
+    3-tuples back onto the edge pattern
+    (``honn.sp_operator.pool_keys("X", 2)``).  It ascends, as the
+    tuples come out edge by edge."""
+    dist = _spd_matrix(graph)
+    u, v = graph.edge_index[0], graph.edge_index[1]
+    within = (dist[u] <= hop) | (dist[v] <= hop)  # (E, n)
+    e_idx, w = np.nonzero(within)
+    feat = np.stack([dist[u[e_idx], w], dist[v[e_idx], w]], axis=-1)
+    feat = np.where(np.isinf(feat), hop + 2, feat).astype(np.int64)
+    return {
+        "tupleid": np.stack([u[e_idx], v[e_idx], w]).astype(np.int64),
+        "tuplefeat": feat,
+        "tupleshape": np.array([graph.num_nodes] * 3, dtype=np.int64),
+        "pool2_seg": e_idx.astype(np.int64),
     }

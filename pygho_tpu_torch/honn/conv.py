@@ -1,9 +1,9 @@
 """High-order GNN layers (port of ``pygho_tpu/honn/conv.py``: ``NGNNConv``,
-``SSWLConv``, ``DSSGNNConv``, ``PPGNConv``, ``GNNAKConv``, ``SUNConv`` and
-``NGATConv``; ``I2Conv`` is not ported).  The MLPs are mask-aware: padded
+``SSWLConv``, ``I2Conv``, ``DSSGNNConv``, ``PPGNConv``, ``GNNAKConv``,
+``SUNConv`` and ``NGATConv``).  The MLPs are mask-aware: padded
 rows and padded dense slots never enter batch-norm statistics.
 
-SSWL, DSSGNN, GNNAK and SUN run in the sparse mode ("SS") only; their
+SSWL, I2GNN, DSSGNN, GNNAK and SUN run in the sparse mode ("SS") only; their
 dense and SD modes raise (``ROADMAP.md``, Queue A item 9).  Module
 attributes carry the JAX package's names (``aggr1``, ``lin0``,
 ``lin1_0`` and so on), so ``weights.load_jax_params`` maps them path for
@@ -77,6 +77,26 @@ class SSWLConv(nn.Module):
         X1 = self.aggr1(A, X, datadict, X)
         X2 = self.aggr2(A, X, datadict, X)
         return _apply(X.catvalue([X1, X2], True), self.lin)
+
+
+class I2Conv(nn.Module):
+    """I2-GNN layer on 3-tuples: X <- MP_subg3D(A, MLP(X))
+    (reference Conv.py:107-147; Huang et al., ICLR 2023).  One K1
+    contraction a layer, on the key ``X___X___2___A___0``: the tuple
+    values (i, j, k) times the edge values (k, l) onto (i, j, l)."""
+
+    def __init__(self, indim: int, outdim: int, aggr: str = "sum",
+                 mode: str = "SS", mlp: dict = {}, optuplefeat: str = "X",
+                 opadj: str = "A", *, generator: torch.Generator):
+        super().__init__()
+        self.aggr = TensorOp.OpMessagePassingOnSubg3D(mode, aggr,
+                                                      optuplefeat, opadj)
+        self.lin = MLP(indim, outdim, generator=generator, **mlp)
+
+    def forward(self, A: Tensorish, X: Tensorish,
+                datadict: Dict) -> Tensorish:
+        tX = _apply(X, self.lin)
+        return self.aggr(A, tX, datadict, tX)
 
 
 class DSSGNNConv(nn.Module):

@@ -1,7 +1,7 @@
-"""Operators on SparseTensors (port of the 2-D part of
-``pygho_tpu/honn/sp_operator.py``: the message passing within and across
-subgraphs, the 2-FWL product, node message passing, the diagonal, pooling
-and unpooling).
+"""Operators on SparseTensors (port of ``pygho_tpu/honn/sp_operator.py``:
+the message passing within and across subgraphs, over the third node of
+3-tuples, the 2-FWL product, node message passing, the diagonal, pooling
+to dense and sparse outputs, and unpooling).
 
 The precompute-key protocol is kept: each OpMessagePassing module declares
 ``"{op0}___{op1}___{dim1}___{op2}___{dim2}"``; ``parse_precomputekey``
@@ -15,12 +15,14 @@ preprocessing.
 Every tuple message passing runs K1 through ``backend.spspmm`` on its
 key's triples; ``OpNodeMessagePassing`` is ``backend.spmm``, a gather and
 a segment sum; the pooling, the diagonal and the unpooling are segment
-sums and gathers (``SparseTensor``).
+sums and gathers (``SparseTensor``).  A sparse-output pooling reads its
+host-built segment map and target pattern from the datadict, under the
+keys of :func:`pool_keys`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Union
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -31,6 +33,24 @@ from ..backend.sptensor import SparseTensor
 
 KEYSEP = "___"
 
+POOL_PREFIX = "pool"  # datadict keys of a precomputed sparse-output pooling
+
+
+def pool_seg_key(op: str, dims: Union[int, Iterable[int]]) -> str:
+    """The datadict key prefix of the pooling of ``dims`` of the tuple
+    tensor ``op`` onto a sparse pattern (e.g. ``"Xpool___2"``)."""
+    if isinstance(dims, int):
+        dims = [dims]
+    d = "_".join(str(x) for x in sorted(dims))
+    return f"{op}{POOL_PREFIX}{KEYSEP}{d}"
+
+
+def pool_keys(op: str, dims: Union[int, Iterable[int]]) -> Tuple[str, str]:
+    """The datadict keys of that pooling: its tuple-to-target segment map
+    (``<prefix>___seg``) and its target pattern (``<prefix>___tarX``)."""
+    prefix = pool_seg_key(op, dims)
+    return f"{prefix}{KEYSEP}seg", f"{prefix}{KEYSEP}tarX"
+
 
 def parse_precomputekey(model: nn.Module) -> List[str]:
     """Collect precompute keys from every OpMessagePassing in a model
@@ -39,14 +59,18 @@ def parse_precomputekey(model: nn.Module) -> List[str]:
                    if isinstance(mod, OpMessagePassing)})
 
 
-def _fetch(datadict: Dict, key: str, what: str) -> torch.Tensor:
-    val = datadict.get(f"{key}{KEYSEP}{what}")
+def _fetch_key(datadict: Dict, name: str):
+    val = datadict.get(name)
     if val is None:
         raise KeyError(
-            f"missing precomputed '{key}{KEYSEP}{what}'. Run the sparse "
+            f"missing precomputed '{name}'. Run the sparse "
             f"preprocessing with keys=parse_precomputekey(model) and batch "
             f"with SpDataloader.")
     return val
+
+
+def _fetch(datadict: Dict, key: str, what: str) -> torch.Tensor:
+    return _fetch_key(datadict, f"{key}{KEYSEP}{what}")
 
 
 def fetch_backward_orders(datadict: Dict, key: str):
@@ -110,6 +134,23 @@ class OpMessagePassingOnSubg2D(OpMessagePassing):
         return super().forward(X, A, datadict, tarX)
 
 
+class OpMessagePassingOnSubg3D(OpMessagePassing):
+    """Message passing on the third node of 3-tuples: X(i, j, :) propagated
+    along A (reference SpOperator.py:280-327); the contraction
+    X[i,j,k] A[k,l], key ``X___X___2___A___0``."""
+
+    def __init__(self, aggr: str = "sum", optuplefeat: str = "X",
+                 opadj: str = "A"):
+        super().__init__(optuplefeat, optuplefeat, 2, opadj, 0, aggr)
+
+    def forward(self, A: SparseTensor, X: SparseTensor, datadict: Dict,
+                tarX: SparseTensor) -> SparseTensor:
+        if A.sparse_dim != 2 or X.sparse_dim != 3:
+            raise ValueError("OpMessagePassingOnSubg3D takes a 2-D A and a "
+                             "3-D X")
+        return super().forward(X, A, datadict, tarX)
+
+
 class Op2FWL(OpMessagePassing):
     """2-FWL update ``X <- X1 @ X2`` (reference SpOperator.py:185-227),
     key ``X___X___1___X___0``."""
@@ -168,14 +209,18 @@ class OpDiag2D(OpDiag):
 
 
 class OpPooling(nn.Module):
-    """Pool tuple representations over sparse dims to a dense tensor
-    (reference SpOperator.py:427-467).  Sparse output is not ported.
-    Pooling over dim 1 sums segments of sorted ids; over dim 0 the ids
-    (``indices[1]``) are not sorted, and in the parity mode the sum goes
-    through the sorted ``index_put_`` behind a deterministic
-    ``index_add_`` (``backend/segment.py``)."""
+    """Pool tuple representations over sparse dims (reference
+    SpOperator.py:427-467).  To a dense tensor: pooling over dim 1 sums
+    segments of sorted ids; over dim 0 the ids (``indices[1]``) are not
+    sorted, and in the parity mode the sum goes through the sorted
+    ``index_put_`` behind a deterministic ``index_add_``
+    (``backend/segment.py``).  With ``return_sparse``, onto the target
+    pattern of the datadict through its segment map (the keys of
+    :func:`pool_keys`), both built on the host
+    (``SparseTensor._reduce_to_sparse``)."""
 
-    def __init__(self, dims: Union[int, Iterable[int]], pool: str = "sum"):
+    def __init__(self, dims: Union[int, Iterable[int]], pool: str = "sum",
+                 return_sparse: bool = False, op: str = "X"):
         super().__init__()
         if isinstance(dims, int):
             dims = [dims]
@@ -183,9 +228,18 @@ class OpPooling(nn.Module):
             raise NotImplementedError(f"pool {pool!r} is not ported yet")
         self.dims = sorted(set(dims))
         self.pool = pool
+        self.return_sparse = return_sparse
+        self.op = op
 
-    def forward(self, X: SparseTensor) -> torch.Tensor:
-        return getattr(X, self.pool)(self.dims)
+    def forward(self, X: SparseTensor, datadict: Optional[Dict] = None):
+        if not self.return_sparse:
+            return getattr(X, self.pool)(self.dims)
+        datadict = datadict or {}
+        seg, tarX = (_fetch_key(datadict, k)
+                     for k in pool_keys(self.op, self.dims))
+        return getattr(X, self.pool)(
+            self.dims, return_sparse=True, seg_ids=seg,
+            tar_indices=tarX.indices, tar_nnz=tarX.nnz)
 
 
 class OpPoolingSubg2D(OpPooling):
@@ -199,6 +253,19 @@ class OpPoolingSubg2D(OpPooling):
         if X.sparse_dim != 2:
             raise ValueError("OpPoolingSubg2D takes a 2-D X")
         return super().forward(X)
+
+
+class OpPoolingSubg3D(OpPooling):
+    """Pool the third node of 3-tuples onto the (i, j) pair pattern:
+    dims=[2], sparse out (reference SpOperator.py:496-519)."""
+
+    def __init__(self, pool: str = "sum", op: str = "X"):
+        super().__init__(2, pool, True, op)
+
+    def forward(self, X: SparseTensor, datadict: Dict) -> SparseTensor:
+        if X.sparse_dim != 3:
+            raise ValueError("OpPoolingSubg3D takes a 3-D X")
+        return super().forward(X, datadict)
 
 
 class OpPoolingCrossSubg2D(OpPooling):

@@ -9,8 +9,9 @@ take the tuples' character alone ("S" or "D").  Ported:
 - ``OpMessagePassingOnSubg2D`` in its three modes ("DD" sums only, as in
   the JAX package) and ``OpPoolingSubg2D`` in both;
 - ``Op2FWL`` in "SS" and "DD" (sum only);
-- ``OpNodeMessagePassing``, ``OpMessagePassingCrossSubg2D``, ``OpDiag2D``,
-  ``OpPoolingCrossSubg2D``, ``OpUnpoolingSubgNodes2D`` and
+- ``OpNodeMessagePassing``, ``OpMessagePassingCrossSubg2D``,
+  ``OpMessagePassingOnSubg3D``, ``OpDiag2D``, ``OpPoolingCrossSubg2D``,
+  ``OpPoolingSubg3D``, ``OpUnpoolingSubgNodes2D`` and
   ``OpUnpoolingRootNodes2D`` in the sparse modes ("SS", "S").
 
 Their dense and SD modes raise ``NotImplementedError`` (``ROADMAP.md``,
@@ -88,6 +89,21 @@ class OpMessagePassingOnSubg2D(nn.Module):
         return self.mod(A, X, datadict, tarX)
 
 
+class OpMessagePassingOnSubg3D(nn.Module):
+    """(reference TensorOp.py:190-252)"""
+
+    def __init__(self, mode: str = "SS", aggr: str = "sum",
+                 optuplefeat: str = "X", opadj: str = "A"):
+        super().__init__()
+        if mode != "SS":
+            raise _unported("OpMessagePassingOnSubg3D", mode)
+        self.mod = SpOperator.OpMessagePassingOnSubg3D(aggr, optuplefeat,
+                                                       opadj)
+
+    def forward(self, A, X, datadict: Dict, tarX):
+        return self.mod(A, X, datadict, tarX)
+
+
 class OpMessagePassingCrossSubg2D(nn.Module):
     """(reference TensorOp.py:255-317)"""
 
@@ -130,6 +146,19 @@ class OpPoolingSubg2D(nn.Module):
 
     def forward(self, X):
         return self.mod(X)
+
+
+class OpPoolingSubg3D(nn.Module):
+    """(reference TensorOp.py:401-420)"""
+
+    def __init__(self, mode: str = "S", pool: str = "sum", op: str = "X"):
+        super().__init__()
+        if mode != "S":
+            raise _unported("OpPoolingSubg3D", mode)
+        self.mod = SpOperator.OpPoolingSubg3D(pool, op)
+
+    def forward(self, X, datadict: Dict):
+        return self.mod(X, datadict)
 
 
 class OpPoolingCrossSubg2D(nn.Module):

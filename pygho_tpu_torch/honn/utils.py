@@ -13,7 +13,7 @@ keep their statistics in f32.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -207,3 +207,42 @@ class HeteroLinear(nn.Module):
                 y = y + self.bias[t]
             out = y if out is None else torch.where(sel == t, y, out)
         return out
+
+
+def recalibrate_batchnorm(model: nn.Module, batches: Iterable,
+                          forward: Callable[[nn.Module, object], object]
+                          ) -> int:
+    """Re-estimate every :class:`BatchNorm`'s running statistics as the
+    mean over ``batches`` of each batch's statistics (port of
+    ``pygho_tpu/honn/utils.py:214``; the post-training BN re-estimation
+    behind ``--recalibrate_bn``).
+
+    ``forward(model, batch)`` runs the model's forward on one batch; it
+    runs under ``torch.no_grad()`` with every norm in training mode and
+    momentum 1, so that a norm's running statistics become that batch's.
+    The sums are f32, in batch order, as the JAX package takes them.  The
+    norms' momentum and mode are restored afterwards.  Returns the number
+    of batches."""
+    bns = [mod for mod in model.modules() if isinstance(mod, BatchNorm)]
+    saved = [(bn.momentum, bn.training) for bn in bns]
+    for bn in bns:
+        bn.momentum = 1.0
+        bn.train()
+    sums = None
+    n = 0
+    try:
+        with torch.no_grad():
+            for batch in batches:
+                forward(model, batch)
+                stats = [(bn.mean.clone(), bn.var.clone()) for bn in bns]
+                sums = stats if sums is None else [
+                    (sm + m, sv + v) for (sm, sv), (m, v) in zip(sums, stats)]
+                n += 1
+            for bn, (sm, sv) in zip(bns, sums if n else ()):
+                bn.mean.copy_(sm / n)
+                bn.var.copy_(sv / n)
+    finally:
+        for bn, (m, training) in zip(bns, saved):
+            bn.momentum = m
+            bn.train(training)
+    return n

@@ -1,8 +1,9 @@
 """ZINC-style HOGNN models (port of ``InputEncoderSp``, ``SpModel``,
-``make_sp_model``, ``InputEncoderMa``, ``MaModel`` and ``make_ma_model``
-from ``pygho_tpu/models/zinc.py``; NGNN, NGAT, SSWL, DSSGNN, GNNAK, SUN
-and PPGN in sparse mode, NGNN in the dense modes (DD, SD) and PPGN in
-dense mode, each in f32 or with bf16 compute over f32 parameters).
+``InputEncoderI2``, ``make_sp_model``, ``InputEncoderMa``, ``MaModel`` and
+``make_ma_model`` from ``pygho_tpu/models/zinc.py``; every sparse conv
+(NGNN, NGAT, SSWL, DSSGNN, GNNAK, SUN, PPGN and I2GNN), NGNN in the dense
+modes (DD, SD) and PPGN in dense mode, each in f32 or with bf16 compute
+over f32 parameters).
 
 ``SpModel`` takes the datadict of ``hodata.batch_to_sparse_dict``,
 ``MaModel`` that of ``hodata.batch_to_dense_dict``; both return
@@ -65,10 +66,40 @@ class InputEncoderSp(nn.Module):
         return datadict
 
 
+class InputEncoderI2(nn.Module):
+    """Encoders of I2GNN's 3-tuples (reference example/zinc.py:91-104): a
+    tuple's feature is the sum of the embeddings of its two distances
+    (SPD(u, w), SPD(v, w)); node and edge features as
+    :class:`InputEncoderSp`."""
+
+    def __init__(self, hiddim: int, *, generator: torch.Generator,
+                 num_x: int = 32, num_ea: int = 16, num_tf: int = 16):
+        super().__init__()
+        self.x_encoder = make_embedding(num_x, hiddim, generator=generator)
+        self.ea_encoder = make_embedding(num_ea, hiddim,
+                                         generator=generator)
+        self.tuplefeat_encoder1 = make_embedding(num_tf, hiddim,
+                                                 generator=generator)
+        self.tuplefeat_encoder2 = make_embedding(num_tf, hiddim,
+                                                 generator=generator)
+
+    def forward(self, datadict: Dict) -> Dict:
+        datadict = dict(datadict)
+        x = datadict["x"]
+        datadict["x"] = self.x_encoder(x.reshape(x.shape[0], -1)[:, 0])
+        if datadict["A"].values is not None:
+            datadict["A"] = datadict["A"].tuplewiseapply(
+                lambda v: self.ea_encoder(v.reshape(v.shape[0])))
+        datadict["X"] = datadict["X"].tuplewiseapply(
+            lambda v: self.tuplefeat_encoder1(v[:, 0])
+            + self.tuplefeat_encoder2(v[:, 1]))
+        return datadict
+
+
 def _sp_convdict(aggr: str, cpool: str, mlp: dict,
                  generator: torch.Generator):
     """Sparse conv factories (the JAX package's ``_sp_convdict``,
-    ``models/zinc.py:107-131``, without I2GNN)."""
+    ``models/zinc.py:107-131``)."""
     g = dict(generator=generator)
     return {
         "NGNN": lambda d: Conv.NGNNConv(d, d, aggr, "SS", mlp, **g),
@@ -80,15 +111,19 @@ def _sp_convdict(aggr: str, cpool: str, mlp: dict,
         "SUN": lambda d: Conv.SUNConv(d, d, aggr, cpool, "SS", mlp, mlp,
                                       **g),
         "PPGN": lambda d: Conv.PPGNConv(d, d, aggr, "SS", mlp, **g),
+        "I2GNN": lambda d: Conv.I2Conv(d, d, aggr, "SS", mlp, **g),
         "NGAT": lambda d: Conv.NGATConv(d, d, aggr, "SS", mlp, **g),
     }
 
 
 class SpModel(nn.Module):
     """Sparse HOGNN for graph regression (reference
-    example/zinc.py:225-294).  Every sparse conv of the JAX package but
-    I2GNN is ported; ``cpool`` is the cross-subgraph pooling of DSSGNN,
-    GNNAK and SUN.
+    example/zinc.py:225-294), with every sparse conv of the JAX package;
+    ``cpool`` is the cross-subgraph pooling of DSSGNN, GNNAK and SUN.
+    I2GNN works on 3-tuples (``I2Sampler``): its tuples are initialised
+    from three node projections, and its readout pools the third node onto
+    the edge pattern (``lpool3``, sparse out) and then the edges onto
+    their first node (``lpool2``).
 
     ``dtype`` is the compute dtype (``torch.bfloat16`` for mixed
     precision): the MLPs and the tuple-init layers compute in it over f32
@@ -113,12 +148,8 @@ class SpModel(nn.Module):
         if dtype is not None:
             mlp.setdefault("dtype", dtype)
         self.dtype = dtype
-        convdict = _sp_convdict(aggr, cpool, mlp, generator)
-        if conv not in convdict:
-            raise NotImplementedError(
-                f"conv {conv!r} is not ported yet; available: "
-                f"{sorted(convdict)}")
         self.conv_name = conv
+        self.is3d = conv == "I2GNN"
         self.hiddim = hiddim
         self.num_tasks = num_tasks
         self.residual = residual
@@ -128,23 +159,43 @@ class SpModel(nn.Module):
                                           dtype=dtype)
         self.lin_tupleinit1 = make_linear(hiddim, hiddim, generator=generator,
                                           dtype=dtype)
+        if self.is3d:
+            self.lin_tupleinit2 = make_linear(hiddim, hiddim,
+                                              generator=generator,
+                                              dtype=dtype)
+        convdict = _sp_convdict(aggr, cpool, mlp, generator)
+        if conv not in convdict:
+            raise ValueError(f"unknown conv {conv!r}; available: "
+                             f"{sorted(convdict)}")
         self.subggnns = nn.ModuleList(
             [convdict[conv](hiddim) for _ in range(num_layer)])
-        self.lpool = TensorOp.OpPoolingSubg2D("S", lpool)
+        if self.is3d:
+            self.lpool3 = TensorOp.OpPoolingSubg3D("S", lpool)
+            self.lpool2 = TensorOp.OpPoolingSubg2D("S", lpool)
+        else:
+            self.lpool = TensorOp.OpPoolingSubg2D("S", lpool)
         head = {k: v for k, v in mlp.items()
                 if k not in ("numlayer", "tailact")}
         self.poolmlp = MLP(hiddim, hiddim, 1, tailact=True,
                            generator=generator, **head)
-        self.data_encoder = InputEncoderSp(hiddim, generator=generator)
+        encoder = InputEncoderI2 if self.is3d else InputEncoderSp
+        self.data_encoder = encoder(hiddim, generator=generator)
         self.pred_lin = MLP(hiddim, num_tasks, outlayer, tailact=False,
                             generator=generator, **head)
 
     def tupleinit(self, X: SparseTensor, x: torch.Tensor) -> SparseTensor:
-        """X_ij <- W0 x_i * W1 x_j * X_ij (reference
-        example/zinc.py:276-282)."""
-        last = x.shape[0] - 1
-        t0 = self.lin_tupleinit0(x)[torch.clamp(X.indices[0], max=last)]
-        t1 = self.lin_tupleinit1(x)[torch.clamp(X.indices[1], max=last)]
+        """X_ij <- W0 x_i * W1 x_j * X_ij, and for 3-tuples X_ijk <- W0 x_i
+        * W1 x_j * W2 x_j * X_ijk (reference example/zinc.py:276-282).
+        The reference's quirk is kept: it gathers ``lin_tupleinit2`` at
+        the second node, not the third, so the third node never enters
+        the product.  The gathers take ``X.gather_ids``, whose padding
+        rows, re-zeroed afterwards, are spread over the nodes."""
+        rows = x.shape[0]
+        t0 = self.lin_tupleinit0(x)[X.gather_ids(0, rows)]
+        t1 = self.lin_tupleinit1(x)[X.gather_ids(1, rows)]
+        if self.is3d:
+            t2 = self.lin_tupleinit2(x)[X.gather_ids(1, rows)]
+            return X.tuplewiseapply(lambda v: t0 * t1 * t2 * v)
         return X.tuplewiseapply(lambda v: t0 * t1 * v)
 
     def encode_init(self, datadict: Dict):
@@ -161,7 +212,10 @@ class SpModel(nn.Module):
 
     def readout(self, X: SparseTensor, datadict: Dict) -> torch.Tensor:
         """Subgraph pool + node MLP + graph pool + prediction head."""
-        xs = self.lpool(X)
+        if self.is3d:
+            xs = self.lpool2(self.lpool3(X, datadict))
+        else:
+            xs = self.lpool(X)
         node_mask = torch.arange(xs.shape[0], device=xs.device) \
             < datadict["num_nodes"]
         xs = self.poolmlp(xs, node_mask)

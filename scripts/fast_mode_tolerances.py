@@ -33,8 +33,11 @@ BatchNorm statistics from one batch), and serves them again with every
 first run's statistics, and prints the largest absolute difference of
 the predictions from the first run's: how far the f32 rounding of the
 matrix products moves them, the basis of ``chip_smoke.py``'s
-``SERVE_TOLS``.  The seed-0 weights depend on PyTorch's version (its
-``trunc_normal_``), so run it where the card's numbers were taken.
+``SERVE_TOLS``.  ``SERVEFAST-<conv>`` does the same in the fast mode
+(K1's ``*_f32fast`` roles, whose bf16 roundings flip where the f32
+values they round move), the basis of its ``FAST_SERVE_TOL``.  The
+seed-0 weights depend on PyTorch's version (its ``trunc_normal_``), so
+run it where the card's numbers were taken.
 """
 
 import argparse
@@ -139,14 +142,14 @@ def serve_drift(cs, conv, utils_module):
     move when every ``Linear`` sums in another order
     (:func:`split_linear`) and in f64 (:func:`f64_linear`), with the same
     BatchNorm statistics: ``{variant: max abs difference}``, and the
-    largest |prediction|."""
-    from pygho_tpu_torch.hodata import KhopSampler, synthetic_zinc
+    largest |prediction|.  In the math mode the caller set."""
+    from pygho_tpu_torch.hodata import synthetic_zinc
     from pygho_tpu_torch.honn import parse_precomputekey
     from pygho_tpu_torch.models import SpPredictor
 
     graphs = synthetic_zinc("val", seed=cs.SEED)
     model = cs.sparse_model(conv, "cpu")
-    predictor = SpPredictor(model, partial(KhopSampler, hop=3),
+    predictor = SpPredictor(model, cs.sparse_sampler(conv),
                             parse_precomputekey(model), batch_size=128,
                             device="cpu")
     datas = predictor.preprocess(graphs)
@@ -227,9 +230,13 @@ def main():
           f"{args.steps} batches of 128 graphs as chip_smoke.py trains on")
     for run in args.runs.split(","):
         conv, mode = run.split("-")
-        if conv == "SERVE":
+        if conv in ("SERVE", "SERVEFAST"):
             t0 = time.perf_counter()
-            drift, top = serve_drift(cs, mode, utils_module)
+            set_fused_math(conv == "SERVE")
+            try:
+                drift, top = serve_drift(cs, mode, utils_module)
+            finally:
+                set_fused_math(True)
             print(f"{run}: max abs prediction difference, every Linear "
                   f"summed by halves {drift['split']:.3e}, in f64 "
                   f"{drift['f64']:.3e} (largest |prediction| {top:.4f}; "

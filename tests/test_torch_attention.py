@@ -602,8 +602,9 @@ def test_ngat_training_trajectory_matches_jax():
 @pytest.mark.parametrize("what", ["aggr", "mode", "edge values", "conv"])
 def test_ngat_refusals(what):
     """What is not ported raises ``NotImplementedError``: another
-    aggregation, another mode, an adjacency without edge values, and a
-    conv that is not in the table (the message lists what is)."""
+    aggregation, another mode and an adjacency without edge values; a
+    conv that is not in the table raises ``ValueError``, as in the JAX
+    package, and the message lists the table, every sparse conv."""
     if what == "aggr":
         with pytest.raises(NotImplementedError, match="aggr"):
             pt_conv.NGATConv(8, 8, "mean", "SS", MLP1, **GEN)
@@ -622,7 +623,7 @@ def test_ngat_refusals(what):
         with pytest.raises(NotImplementedError, match="edge values"):
             conv(A, X, {})
     else:
-        with pytest.raises(NotImplementedError,
-                           match=r"\['DSSGNN', 'GNNAK', 'NGAT', 'NGNN', "
-                                 r"'PPGN', 'SSWL', 'SUN'\]"):
-            make_sp_model("I2GNN", device="cpu")
+        with pytest.raises(ValueError,
+                           match=r"\['DSSGNN', 'GNNAK', 'I2GNN', 'NGAT', "
+                                 r"'NGNN', 'PPGN', 'SSWL', 'SUN'\]"):
+            make_sp_model("GIN", device="cpu")

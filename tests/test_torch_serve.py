@@ -107,7 +107,8 @@ def test_entry_points_need_a_device_choice():
         SpPredictor(m, KhopSampler, parse_precomputekey(m), num_workers=2,
                     device="cpu")
     with pytest.raises(NotImplementedError):
-        make_sp_model("I2GNN", device="cpu")
+        make_sp_model("NGNN", num_layer=1, hiddim=8, aggr="mean",
+                      device="cpu")
 
 
 def test_port_imports_nothing_of_jax():

@@ -386,12 +386,13 @@ def test_conv_layer_matches_jax(rng, name, train):
 
 
 def test_what_stays_unported_raises():
-    """Sparse I2GNN (the 3-tuple path, ``ROADMAP.md`` Queue A item 7) and
-    the dense and SD modes of the new convs (item 9) raise
-    ``NotImplementedError``; so do a sparse-output diagonal and unpooling
-    a SparseTensor."""
-    with pytest.raises(NotImplementedError, match="I2GNN"):
-        make_sp_model("I2GNN", num_layer=1, hiddim=8, device="cpu")
+    """The dense and SD modes of the new convs (``ROADMAP.md``, Queue A
+    item 9) raise ``NotImplementedError``, and so does a subgraph conv with
+    another aggregation than the sum (item 6); so do a sparse-output
+    diagonal and unpooling a SparseTensor."""
+    with pytest.raises(NotImplementedError, match="aggr"):
+        make_sp_model("SSWL", num_layer=1, hiddim=8, aggr="max",
+                      device="cpu")
     mlp = {**MLPD, "numlayer": 1, "tailact": True}
     for mode in ("DD", "SD"):
         with pytest.raises(NotImplementedError, match="item 9"):

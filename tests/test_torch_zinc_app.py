@@ -385,7 +385,7 @@ def test_zinc_gpu_reads_the_real_zinc_layout(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--sparse", "--conv", "I2GNN"], "item 7"),
+    (["--sparse", "--conv", "I2GNN", "--aggr", "mean"], "item 6"),
     (["--conv", "GNNAK"], "item 9"),
     (["--conv", "SSWL"], "item 9"),
     (["--sparse", "--aggr", "mean"], "item 6"),
