@@ -124,7 +124,27 @@ Phases, each printing its wall seconds:
    process (I2GNN 5x128 with the tuned flags of ``scripts/matrix_r5.sh``,
    ``COUNT_EPOCHS`` epochs): K1's forward and dX roles and no other kernel
    (the count graphs' adjacency has no values, so no dA role), finite
-   losses and validation MAE, the jsonl records.
+   losses and validation MAE, the jsonl records;
+24. dense subgraph convs: SSWL, DSSGNN, GNNAK and SUN 6x128 in DD and in
+   SD mode (``DENSE_CFG``: the dense rows' settings of
+   ``scripts/converged_matrix.sh``, weights from seed 0), each served as
+   phase 15 serves NGNN-DD (SD through ``MaPredictor(denseadj=False)``,
+   the densify route) and trained as phase 16 trains it (ten AdamW steps
+   at the row's lr, twice, bitwise; card and CPU on ``DENSE_CUT_STEPS``
+   batches of ``DENSE_CUT`` graphs within ``DENSE_SERVE_TOL`` and
+   ``DENSE_TRAIN_RTOL``), with K5's f32 roles and no other kernel
+   launched once a layer and contraction a batch or step: 12 for SSWL
+   (its within-subgraph product at ``(2, 1)`` and its cross-subgraph one
+   at ``(1, 1)``, the adjacency read through its transposed strides), 6
+   for the others; then SSWL-SD on the fused route
+   (``MaDataloader(plan_dims=parse_spmamm_dims(model))``: K1's three f32
+   roles 12 times a step on the ``(1, 2)`` and ``(1, 1)`` triples, no
+   K5); each with its graphs/s, a step's breakdown and the peak device
+   memory.
+
+The kernels phase also holds K5's f32 forward at SSWL's cross-subgraph
+layout ``(1, 1)`` (the adjacency through its transposed strides) against
+its plain version and times it beside the ``(2, 1)`` launch.
 
 The kernels phase also holds K1's three f32 roles bit for bit against
 their plain version at SSWL's cross key (the edge values as the first
@@ -317,6 +337,26 @@ NGNN_DENSE = dict(num_layer=6, hiddim=128, npool="sum", lpool="mean",
 NGNN_DENSE_LR = 1e-2          # the converged run's learning rate
 # each dense configuration's model and learning rate, by conv
 DENSE_CFG = {"PPGN": (DENSE, DENSE_LR), "NGNN": (NGNN_DENSE, NGNN_DENSE_LR)}
+# the subgraph convs in the dense modes (phase 24), 6x128 as the dense rows
+# of scripts/converged_matrix.sh train them (spdsampler hop 4, batch 128,
+# mlplayer 2, outlayer 4, and each conv's hps line: npool sum, its lpool,
+# cpool mean, its normparam and lr), with example/zinc_tpu.py's MLP
+# settings, in DD and in SD mode (MaModel(mode="SD"), aggr sum)
+DENSE_SUBGRAPH_CONVS = ("SSWL", "DSSGNN", "GNNAK", "SUN")
+DENSE_CFG.update({conv: (dict(num_layer=6, hiddim=128, npool="sum",
+                              lpool=lpool, cpool="mean", outlayer=4,
+                              mlp={"dp": 0.0, "norm": "bn", "act": "silu",
+                                   "normparam": normparam, "numlayer": 2,
+                                   "tailact": True}), lr)
+                  for conv, lpool, normparam, lr in (
+                      ("SSWL", "mean", 0.22, 9e-3),
+                      ("DSSGNN", "sum", 0.31, 8.6e-3),
+                      ("GNNAK", "sum", 0.31, 8.6e-3),
+                      ("SUN", "sum", 0.57, 8.6e-3))})
+# the tuple contractions a layer that K5 (or K1 on the SD fused route)
+# takes, by conv: SSWL's within-subgraph (2, 1) and cross-subgraph (1, 1)
+# products, one within-subgraph product for every other dense conv
+DENSE_PRODUCTS = {"SSWL": 2}
 # the NGNN dense phases hold the card against the CPU on batches of
 # DENSE_CUT graphs, DENSE_CUT_STEPS steps of them (both sides on the same
 # cut batches; the launch counts, the bitwise repeat and the timings take
@@ -1372,6 +1412,24 @@ def check_k5(datas, dev, rng, flush, dtype=None):
                        "launches": None, "max_abs_err": errs[role],
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": lib_ms})
+    if not rounded:
+        # the forward at SSWL's cross-subgraph layout (1, 1): mamamm hands
+        # K5 the adjacency through its transposed strides, A[b,k,i,d] read
+        # as (b, i, k, d); the same bytes and operations as at (2, 1)
+        At = A.transpose(1, 2)
+        err, ratio, same = compare(k5.FWD, At, X)
+        held(f"{variant[k5.FWD].NAME} at the (1, 1) layout {shape}", err,
+             ratio, same)
+        cross_ms = time_ms(lambda: k5.cw_bmm(k5.FWD, At, X), flush)
+        plain_ms = time_ms(lambda: k5.cw_bmm_plain(At, X), flush)
+        lib_ms = time_ms(lambda: torch.einsum("bkid,bkjd->bijd", A, X),
+                         flush)
+        print(f"{variant[k5.FWD].NAME} at the (1, 1) layout (A read through "
+              f"its transposed strides; L2 flushed before each launch, "
+              f"median of 30): kernel {cross_ms:.4f} ms against "
+              f"{report[0]['ms']:.4f} ms at (2, 1), plain {plain_ms:.4f} "
+              f"ms, torch.einsum {lib_ms:.4f} ms; bound "
+              f"{report[0]['bound_ms']:.4f} ms")
     return report
 
 
@@ -2246,11 +2304,19 @@ def count_entry(card, dev):
 
 
 def dense_name(conv="PPGN", mode="DD", dtype=None, plans=False):
-    """A dense path's name in the output: conv, mode, width, variant and,
-    in SD mode, the route of its contraction."""
+    """A dense path's name in the output: conv, mode, depth x width,
+    variant and, in SD mode, the route of its contraction."""
     route = "" if mode == "DD" else (", fused route" if plans
                                      else ", densify route")
-    return f"{conv}-{mode} 6x128 ({mode_name(dtype)}{route})"
+    cfg = DENSE_CFG[conv][0]
+    return (f"{conv}-{mode} {cfg['num_layer']}x{cfg['hiddim']} "
+            f"({mode_name(dtype)}{route})")
+
+
+def dense_launch_count(conv):
+    """The launches of each of a dense path's kernel roles in one forward
+    (or one training step): a layer's contractions times the depth."""
+    return DENSE_CFG[conv][0]["num_layer"] * DENSE_PRODUCTS.get(conv, 1)
 
 
 def dense_model(device, conv="PPGN", mode="DD", dtype=None):
@@ -2263,9 +2329,10 @@ def dense_model(device, conv="PPGN", mode="DD", dtype=None):
 
 
 def dense_roles(conv, mode, dtype=None, plans=False):
-    """The kernel roles that a dense path's layers launch, six times a
-    step each in training, the forward first: K5's (in the variant of
-    ``dtype``), or K1's f32 roles on the SD mode's fused route."""
+    """The kernel roles that a dense path's layers launch,
+    :func:`dense_launch_count` times a step each in training, the forward
+    first: K5's (in the variant of ``dtype``), or K1's f32 roles on the SD
+    mode's fused route."""
     import torch
 
     from pygho_tpu_torch.kernels import channelwise_bmm as k5
@@ -2277,10 +2344,10 @@ def dense_roles(conv, mode, dtype=None, plans=False):
 
 
 def serve_dense(graphs, rng, dev, conv="PPGN", mode="DD"):
-    """A dense configuration 6x128 through MaPredictor on ``dev`` (the
-    densify route in SD mode: the predictor builds no plans), then on the
-    CPU: PPGN-DD on every request, the NGNN paths on the 40-graph request
-    in batches of DENSE_CUT."""
+    """A dense configuration through MaPredictor on ``dev`` (the densify
+    route in SD mode: the predictor builds no plans), then on the CPU:
+    PPGN-DD on every request, the other paths on the 40-graph request in
+    batches of DENSE_CUT."""
     import numpy as np
 
     from pygho_tpu_torch.hodata import spdsampler
@@ -2313,7 +2380,7 @@ def serve_dense(graphs, rng, dev, conv="PPGN", mode="DD"):
           f"{launches}")
     expected = {mod.NAME: 0 for mod in KERNELS}
     expected[dense_roles(conv, mode)[0].NAME] = \
-        DENSE_CFG[conv][0]["num_layer"] * n_batches
+        dense_launch_count(conv) * n_batches
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
 
@@ -2360,7 +2427,7 @@ def serve_dense(graphs, rng, dev, conv="PPGN", mode="DD"):
 
 def dense_train_run(device, batches, steps, per_step=None, conv="PPGN",
                     mode="DD", dtype=None):
-    """A dense configuration 6x128 from seed 0, ``steps`` AdamW steps at
+    """A dense configuration from seed 0, ``steps`` AdamW steps at
     its learning rate on ``batches`` through the port's
     ``make_dense_steps``.  Returns the per-step losses and the model."""
     from pygho_tpu_torch.models import make_dense_steps, make_optimizer
@@ -2378,23 +2445,28 @@ def dense_train_run(device, batches, steps, per_step=None, conv="PPGN",
 
 
 def train_dense(card, dev, conv="PPGN", mode="DD", dtype=None, plans=False):
-    """A dense configuration 6x128 trains on the card, computing in
-    ``dtype``, in SD mode on the fused route where ``plans`` (the loader's
-    K1 triples) and on the densify route otherwise: 6 launches of each of
-    its kernel's roles a step and no other, finite losses, two runs
-    bitwise identical, the CPU's losses within the tolerance (PPGN-DD over
-    DENSE_CPU_STEPS steps of the same batches; the NGNN paths on
+    """A dense configuration trains on the card, computing in ``dtype``,
+    in SD mode on the fused route where ``plans`` (the loader's K1
+    triples for every pair of ``parse_spmamm_dims``) and on the densify
+    route otherwise: :func:`dense_launch_count` launches of each of its
+    kernel's roles a step and no other, finite losses, two runs bitwise
+    identical, the CPU's losses within the tolerance (PPGN-DD over
+    DENSE_CPU_STEPS steps of the same batches; the other paths on
     DENSE_CUT_STEPS batches of DENSE_CUT graphs, both sides); then
-    graphs/s trained, a step's time and the peak device memory.  Returns
-    the launches of the first training run and the peak."""
+    graphs/s trained, a step's breakdown and the peak device memory.
+    Returns the launches of the first training run and the peak."""
     import torch
 
     from pygho_tpu_torch.hodata import (MaDataloader, Mapretransform,
                                         spdsampler, synthetic_zinc)
+    from pygho_tpu_torch.honn import parse_spmamm_dims
     from pygho_tpu_torch.kernels import KERNELS
     from pygho_tpu_torch.models import make_dense_steps, make_optimizer
 
     name = dense_name(conv, mode, dtype, plans)
+    # the (dim1, dim2) pairs whose K1 triples the loader builds
+    plan_dims = parse_spmamm_dims(dense_model("cpu", conv, mode)) \
+        if plans else ((1, 2),)
     run = partial(dense_train_run, conv=conv, mode=mode, dtype=dtype)
     t0 = time.perf_counter()
     pre = Mapretransform(partial(spdsampler, hop=DENSE_HOP))
@@ -2402,7 +2474,8 @@ def train_dense(card, dev, conv="PPGN", mode="DD", dtype=None, plans=False):
 
     def loader(bs):
         return MaDataloader(datas, bs, shuffle=True, drop_last=True, seed=0,
-                            denseadj=mode == "DD", build_plans=plans)
+                            denseadj=mode == "DD", build_plans=plans,
+                            plan_dims=plan_dims)
 
     full = loader(128)
     batches = []
@@ -2413,6 +2486,12 @@ def train_dense(card, dev, conv="PPGN", mode="DD", dtype=None, plans=False):
           f"\"train\"), {TRAIN_STEPS} shuffled batches of 128 (loader seed "
           f"0, n padded to {batches[0]['X_data'].shape[1]}), preprocessed "
           f"and collated in {time.perf_counter() - t0:.3f} s")
+    if plans:
+        keys = [f"spmamm___{a}___{b}___acd" for a, b in plan_dims]
+        if not all(k in b for b in batches for k in keys):
+            raise AssertionError(f"a batch lacks the K1 triples of {keys}")
+        print(f"K1's triples a batch, for each of {keys}: "
+              f"{batches[0][keys[0]].shape[1]}")
 
     counts = []
 
@@ -2436,8 +2515,8 @@ def train_dense(card, dev, conv="PPGN", mode="DD", dtype=None, plans=False):
           f"{[f'{x:.6f}' for x in losses]}; kernel launches {launches}; "
           f"peak device memory {peak / 2 ** 30:.3f} GiB")
     mine = {mod.NAME for mod in dense_roles(conv, mode, dtype, plans)}
-    want = {mod.NAME: DENSE_CFG[conv][0]["num_layer"] if mod.NAME in mine
-            else 0 for mod in KERNELS}
+    want = {mod.NAME: dense_launch_count(conv) if mod.NAME in mine else 0
+            for mod in KERNELS}
     for i, c in enumerate(per_step):
         if c != want:
             raise AssertionError(f"step {i} launched {c}, expected {want}")
@@ -2495,7 +2574,47 @@ def train_dense(card, dev, conv="PPGN", mode="DD", dtype=None, plans=False):
           f"epoch of 8 steps, collation included); one step {dev_ms:.3f} ms "
           f"between CUDA events (median of 5, copy included); peak device "
           f"memory {peak / 2 ** 30:.3f} GiB ({peak} bytes)")
+    dense_step_breakdown(model, opt, full, dev)
     return launches, peak
+
+
+def dense_step_breakdown(model, opt, loader, dev, reps=4):
+    """One dense training step's parts, each synchronised, medians over
+    ``reps`` steps: host collation, the copy to the card, forward+backward
+    and the optimizer step."""
+    from pygho_tpu_torch.hodata import batch_to_dense_dict
+    from pygho_tpu_torch.models import masked_l1_loss
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    parts = {"collation": [], "copy": [], "fwd+bwd": [], "optimizer": []}
+    it = iter(loader)
+    for _ in range(reps):
+        batch, s = timed(lambda: next(it))
+        parts["collation"].append(s)
+        dd, s = timed(lambda: batch_to_dense_dict(batch, ("",), dev))
+        parts["copy"].append(s)
+
+        def fwd_bwd():
+            loss = masked_l1_loss(model(dd), dd["y"], dd["graph_mask"])
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+
+        _, s = timed(fwd_bwd)
+        parts["fwd+bwd"].append(s)
+        _, s = timed(opt.step)
+        parts["optimizer"].append(s)
+    med = {k: statistics.median(v) * 1e3 for k, v in parts.items()}
+    print(f"one 128-graph training step (median of {reps}): host "
+          f"collation {med['collation']:.3f} ms, copy to the card "
+          f"{med['copy']:.3f} ms, forward+backward {med['fwd+bwd']:.3f} ms, "
+          f"optimizer {med['optimizer']:.3f} ms; sum "
+          f"{sum(med.values()):.3f} ms")
 
 
 def main():
@@ -2722,20 +2841,41 @@ def main():
     i2_launches.append(count_entry(card, dev))
     done("I2GNN", t0)
 
+    t0 = phase("dense subgraph convs")
+    dense_subgraph_launches = []
+    for conv in DENSE_SUBGRAPH_CONVS:
+        t1 = time.perf_counter()
+        for mode in ("DD", "SD"):
+            raw_gps, pre_gps, conv_launches = serve_dense(graphs, rng, dev,
+                                                          conv, mode)
+            print(f"{dense_name(conv, mode)} serving on {card}: "
+                  f"{raw_gps:.1f} graphs/s from raw graphs (host precompute "
+                  f"included), {pre_gps:.1f} graphs/s from preprocessed "
+                  f"graphs")
+            dense_subgraph_launches += [conv_launches,
+                                        train_dense(card, dev, conv, mode)[0]]
+        if conv == "SSWL":
+            # the fused route: K1 on the (1, 2) and (1, 1) triples
+            dense_subgraph_launches.append(
+                train_dense(card, dev, conv, "SD", plans=True)[0])
+        print(f"{conv} served and trained in DD and SD in "
+              f"{time.perf_counter() - t1:.3f} s")
+    done("dense subgraph convs", t0)
+
     # launches: each main path's run (NGNN serving and training, dense
     # serving and training, NGAT serving and training, giant-graph
     # training, the fast and bf16 runs, the NGNN dense runs, the giant
     # graph's fast training, the ZINC entry point, the subgraph convs'
-    # serving and training, I2GNN's serving and training in both modes and
-    # the count entry point), each counted from 0 just before the path and
-    # read just after
+    # serving and training in the sparse and the dense modes, I2GNN's
+    # serving and training in both modes and the count entry point), each
+    # counted from 0 just before the path and read just after
     runs = (launches, train_launches, dense_launches, dense_train_launches,
             ngat_launches, ngat_train_launches, giant_launches,
             fast_launches, fast_train_launches, bf16_train_launches,
             ngat_fast_launches, ngnn_dd_launches, ngnn_dd_train_launches,
             ngnn_bf16_train_launches, ngnn_sd_launches, sd_densify_launches,
             sd_fused_launches, giant_fast_launches, zinc_launches,
-            *subgraph_launches, *i2_launches)
+            *subgraph_launches, *dense_subgraph_launches, *i2_launches)
     for line in report:
         line["launches"] = sum(run[line["name"]] for run in runs)
     unlaunched = [line["name"] for line in report if not line["launches"]

@@ -11,20 +11,25 @@ Run examples:
                                     I2Sampler(hop=--hop))
   python example/zinc_gpu.py --conv PPGN            (dense / DD mode)
   python example/zinc_gpu.py --conv NGNN --bf16     (dense / DD mode)
+  python example/zinc_gpu.py --conv SUN --remat     (dense / DD mode; also
+                                    SSWL, DSSGNN, GNNAK)
   python example/zinc_gpu.py --cpu ...              (on the CPU)
 
 It trains on the CUDA card unless ``--cpu`` is given; with no card and no
 ``--cpu`` it raises.  The port runs every sparse conv (NGNN, NGAT, SSWL,
 DSSGNN, GNNAK, SUN, PPGN, and I2GNN on the 3-tuples of
 ``I2Sampler(hop=--hop)``; ``--cpool`` reaches DSSGNN, GNNAK and SUN)
-and the dense PPGN and NGNN (DD) convs, with ``--fused`` (the fast numerics
-mode of the sparse kernels, ``set_fused_math(False)``), ``--bf16``
-(bf16 compute over f32 parameters), ``--repeat``/``--seed0``,
-``--ntrain``, ``--data-root``/``--full`` (the real ZINC from its raw
-files) and ``--converged-record``.  An option the port lacks (another
-conv, aggregation or norm, dropout, ``--ddp``, ``--chained``, ``--remat``,
-``--plan-measure``) is refused with the ``ROADMAP.md`` item that ports it;
-nothing runs in its place.
+and the dense (DD) NGNN, SSWL, DSSGNN, GNNAK, SUN and PPGN convs
+(``--cpool`` again reaching DSSGNN, GNNAK and SUN; ``--remat``
+checkpointing each layer), with ``--fused`` (the fast numerics mode of
+the sparse kernels, ``set_fused_math(False)``), ``--bf16`` (bf16 compute
+over f32 parameters), ``--repeat``/``--seed0``, ``--ntrain``,
+``--data-root``/``--full`` (the real ZINC from its raw files) and
+``--converged-record``.  An option the port lacks (another aggregation
+or norm, dropout, ``--ddp``, ``--chained``, a sparse ``--remat``,
+``--plan-measure``) is refused with the ``ROADMAP.md`` item that ports
+it; nothing runs in its place, and the JAX script's own refusals (NGAT
+and I2GNN are sparse-only) stay.
 
 Each run appends per-epoch records to ``<log-dir>/zinc_gpu_<tag>_r<seed>
 .jsonl`` (a name of its own: the JAX script appends to
@@ -61,7 +66,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-DENSE_CONVS = ("NGNN", "PPGN")
+DENSE_CONVS = ("NGNN", "SSWL", "DSSGNN", "GNNAK", "SUN", "PPGN")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -119,7 +124,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ddp", type=int, default=0,
                         help="not ported (data-parallel over N devices)")
     parser.add_argument("--remat", action="store_true",
-                        help="not ported (layer-level rematerialization)")
+                        help="layer-level rematerialization (dense; not "
+                             "ported for --sparse)")
     parser.add_argument("--chained", action="store_true",
                         help="not ported (whole-epoch training)")
     parser.add_argument("--data-root", type=str, default=None,
@@ -166,8 +172,8 @@ def refusal(args) -> Optional[str]:
         return f"--norm {args.norm} {roadmap} 6)"
     if args.dp != 0.0:
         return f"--dp (dropout) {roadmap} 6)"
-    if args.remat:
-        return f"--remat {roadmap} {6 if args.sparse else 9})"
+    if args.remat and args.sparse:
+        return f"--remat with --sparse {roadmap} 6)"
     if args.ddp > 1:
         return f"--ddp {roadmap} 12)"
     if args.chained:
@@ -248,7 +254,7 @@ class ZincRun:
                 args.conv, num_layer=args.num_layer, hiddim=args.hiddim,
                 npool=args.npool, lpool=args.lpool, cpool=args.cpool,
                 outlayer=args.outlayer, mlp=mlpdict, seed=rep, dtype=dtype,
-                device=device)
+                remat=args.remat, device=device)
             pre = Mapretransform(partial(spdsampler, hop=args.hop), [""])
             self.tag = f"ma_{args.conv}_h{args.hop}"
         self.device = next(self.model.parameters()).device

@@ -14,14 +14,19 @@ and keep a validity mask of the result, as the JAX package does:
   They use ``torch.amax``/``torch.amin``, whose gradient splits evenly
   among ties, as JAX's does (``torch.max(dim)`` sends it all to one).
 
-``diag``, ``unpooling``, ``diagonalapply`` and ``catvalue`` are not on a
-ported path yet and raise.
+``diag`` and ``unpooling`` are views, as JAX's ``jnp.diagonal`` and
+``broadcast_to`` are: the joint diagonal of two or more masked dims, and
+a broadcast along new masked dims to a target's shape (an ``expand``, so
+no ``(b, n, n, d)`` copy is made or kept for autograd).
+``diagonalapply`` hands a function the data and an int mask of the
+diagonal of ``(b, n, n)`` tuples (SUN's ``HeteroLinear``), ``catvalue``
+concatenates the zero-filled values of tensors of one mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence, Tuple, Union
+from typing import Callable, Iterable, Sequence, Tuple, Union
 
 import torch
 
@@ -126,14 +131,57 @@ class MaskedTensor:
                             torch.logical_or(self.mask, tarX.mask))
 
     def diag(self, dims: Sequence[int]) -> "MaskedTensor":
-        raise NotImplementedError("MaskedTensor.diag is not ported yet")
+        """The joint diagonal of the masked ``dims``, placed at ``dims[0]``
+        (reference MaTensor.py:208-223): a view."""
+        dims = sorted(dims)
+        if len(dims) < 2:
+            raise ValueError("diag takes two or more dims")
+        tdata = torch.diagonal(self.data, 0, dims[0], dims[1])
+        tmask = torch.diagonal(self.mask, 0, dims[0], dims[1])
+        for d in dims[2:]:
+            tdata = torch.diagonal(tdata, 0, d, -1)
+            tmask = torch.diagonal(tmask, 0, d, -1)
+        return MaskedTensor(tdata.movedim(-1, dims[0]),
+                            tmask.movedim(-1, dims[0]))
 
     def unpooling(self, dims: Dims, tarX: "MaskedTensor") -> "MaskedTensor":
-        raise NotImplementedError("MaskedTensor.unpooling is not ported yet")
+        """Broadcast along the new masked ``dims`` to ``tarX``'s shape,
+        carrying ``tarX.mask`` (reference MaTensor.py:225-234): an
+        ``expand`` of a view, which copies nothing."""
+        dims = sorted(_canon(dims))
+        tdata = self.data
+        for d in dims:
+            tdata = tdata.unsqueeze(d)
+        target = tuple(tarX.shape[i] if i in dims else tdata.shape[i]
+                       for i in range(tdata.dim()))
+        return MaskedTensor(tdata.expand(target), tarX.mask)
 
-    def diagonalapply(self, func) -> "MaskedTensor":
-        raise NotImplementedError(
-            "MaskedTensor.diagonalapply is not ported yet")
+    def diagonalapply(self, func: Callable[[torch.Tensor, torch.Tensor],
+                                           torch.Tensor]
+                      ) -> "MaskedTensor":
+        """``func(data, eye)``, ``eye`` the int32 mask of the diagonal
+        broadcast to the masked shape, for ``(b, n, n)`` tuples only
+        (reference MaTensor.py:241-249); the mask is kept."""
+        if self.masked_dim != 3:
+            raise ValueError("diagonalapply takes (b, n, n) tuples")
+        eye = torch.eye(self.shape[1], self.shape[2], dtype=torch.int32,
+                        device=self.data.device)
+        return MaskedTensor(func(self.data, eye.expand(self.maskedshape)),
+                            self.mask)
 
-    def catvalue(self, tarXs, samesparse: bool) -> "MaskedTensor":
-        raise NotImplementedError("MaskedTensor.catvalue is not ported yet")
+    def catvalue(self, tarXs: Union["MaskedTensor",
+                                    Iterable["MaskedTensor"]],
+                 samesparse: bool) -> "MaskedTensor":
+        """The zero-filled values of ``self`` and ``tarXs`` concatenated
+        along the last dim, with ``self``'s mask; ``samesparse`` only, as
+        in the JAX package."""
+        if not samesparse:
+            raise NotImplementedError(
+                "catvalue takes tensors of one mask (samesparse=True), as "
+                "the JAX package's does")
+        if isinstance(tarXs, MaskedTensor):
+            tarXs = [tarXs]
+        return MaskedTensor(
+            torch.cat([self.fill_masked(0.0)]
+                      + [t.fill_masked(0.0) for t in tarXs], dim=-1),
+            self.mask)

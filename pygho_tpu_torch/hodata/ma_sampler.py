@@ -1,4 +1,4 @@
-"""Dense tuple sampler (port of ``spdsampler`` from
+"""Dense tuple samplers (port of ``spdsampler`` and ``rdsampler`` from
 ``pygho_tpu/hodata/ma_sampler.py``).
 
 A sampler returns the flat row-major ``(n * n,)`` tuple features and the
@@ -22,5 +22,22 @@ def spdsampler(graph: Graph, hop: int = 2) -> Dict[str, np.ndarray]:
     dist = np.minimum(_spd_matrix(graph), hop + 1)
     return {
         "tuplefeat": dist.reshape(-1).astype(np.int64),
+        "tupleshape": np.array([graph.num_nodes] * 2, dtype=np.int64),
+    }
+
+
+def rdsampler(graph: Graph) -> Dict[str, np.ndarray]:
+    """All-pairs resistance distance through the pseudo-inverse of the
+    graph Laplacian shifted by 0.01 I (reference MaTupleSampler.py:35-57):
+    a float32 ``(n * n, 1)`` tuple feature."""
+    import scipy.sparse.csgraph as csgraph
+
+    lap = csgraph.laplacian(graph.to_scipy_csr()).toarray()
+    lap = lap + 0.01 * np.eye(*lap.shape)
+    L_inv = np.linalg.pinv(lap, hermitian=True)
+    dL = np.diagonal(L_inv)
+    rd = dL.reshape(-1, 1) + dL.reshape(1, -1) - L_inv - L_inv.T
+    return {
+        "tuplefeat": rd.reshape(-1, 1).astype(np.float32),
         "tupleshape": np.array([graph.num_nodes] * 2, dtype=np.int64),
     }

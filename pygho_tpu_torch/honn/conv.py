@@ -3,8 +3,12 @@
 ``SUNConv`` and ``NGATConv``).  The MLPs are mask-aware: padded
 rows and padded dense slots never enter batch-norm statistics.
 
-SSWL, I2GNN, DSSGNN, GNNAK and SUN run in the sparse mode ("SS") only; their
-dense and SD modes raise (``ROADMAP.md``, Queue A item 9).  Module
+Every conv but NGAT runs in the sparse mode ("SS": K1 on host triples),
+the dense one ("DD": the within-subgraph and cross-subgraph products on
+K5 through ``mamamm``) and the sparse-adjacency one ("SD": ``spmamm``, K1
+on the loader's triples or K5 on a densified adjacency), as in the JAX
+package; PPGN has no SD mode, and a dense I2GNN model is refused by
+``models.MaModel``, whose JAX counterpart has no 3-tuple path.  Module
 attributes carry the JAX package's names (``aggr1``, ``lin0``,
 ``lin1_0`` and so on), so ``weights.load_jax_params`` maps them path for
 path."""
@@ -58,9 +62,12 @@ class NGNNConv(nn.Module):
 
 class SSWLConv(nn.Module):
     """Subgraph WL layer: MLP(cat[X, MP_subg(A, X), MP_cross(A, X)])
-    (reference Conv.py:62-103; B. Zhang et al., ICML 2023).  Two K1
-    contractions a layer: ``X___X___1___A___0`` and the cross key
-    ``X___A___1___X___0``, whose first operand is the edge values."""
+    (reference Conv.py:62-103; B. Zhang et al., ICML 2023).  Two
+    contractions a layer: in SS mode K1 on ``X___X___1___A___0`` and on
+    the cross key ``X___A___1___X___0``, whose first operand is the edge
+    values; in DD mode K5 at ``(2, 1)`` and at ``(1, 1)`` (the adjacency
+    through its transposed strides); in SD mode ``spmamm`` at ``(1, 2)``
+    and ``(1, 1)``."""
 
     def __init__(self, indim: int, outdim: int, aggr: str = "sum",
                  mode: str = "SS", mlp: dict = {}, optuplefeat: str = "X",
@@ -83,7 +90,8 @@ class I2Conv(nn.Module):
     """I2-GNN layer on 3-tuples: X <- MP_subg3D(A, MLP(X))
     (reference Conv.py:107-147; Huang et al., ICLR 2023).  One K1
     contraction a layer, on the key ``X___X___2___A___0``: the tuple
-    values (i, j, k) times the edge values (k, l) onto (i, j, l)."""
+    values (i, j, k) times the edge values (k, l) onto (i, j, l).  On
+    dense 3-tuples ("DD", "SD") the contraction is an einsum."""
 
     def __init__(self, indim: int, outdim: int, aggr: str = "sum",
                  mode: str = "SS", mlp: dict = {}, optuplefeat: str = "X",
@@ -102,8 +110,8 @@ class I2Conv(nn.Module):
 class DSSGNNConv(nn.Module):
     """ESAN/DSS layer: MLP(cat[MP_subg(A, X), unpool(nodeMP(A,
     pool_cross(X)))]) (reference Conv.py:151-196; Bevilacqua et al., ICLR
-    2022).  One K1 contraction a layer; the node message passing is
-    ``backend.spmm``."""
+    2022).  One tuple contraction a layer (K1 or K5); the node message
+    passing is ``backend.spmm`` (SS) or an einsum (DD, SD)."""
 
     def __init__(self, indim: int, outdim: int, aggr_subg: str = "sum",
                  aggr_global: str = "sum", pool: str = "mean",
@@ -147,8 +155,8 @@ class PPGNConv(nn.Module):
 class GNNAKConv(nn.Module):
     """GNN-as-kernel layer: MP(A, MLP0(X)), then MLP1(cat[unpool(pool_subg),
     unpool(diag), unpool(pool_cross)]), the last only with ``ctx``
-    (reference Conv.py:240-297; Zhao et al., ICLR 2022).  One K1
-    contraction a layer."""
+    (reference Conv.py:240-297; Zhao et al., ICLR 2022).  One tuple
+    contraction a layer (K1 or K5)."""
 
     def __init__(self, indim: int, outdim: int, aggr: str = "sum",
                  pool: str = "mean", mode: str = "SS", mlp0: dict = {},
@@ -183,7 +191,10 @@ class SUNConv(nn.Module):
     """SUN layer: seven branches concatenated (7 * indim wide), a
     ``HeteroLinear`` that maps diagonal and off-diagonal tuples with
     weights of their own, and an MLP (reference Conv.py:301-363; Frasca et
-    al., NeurIPS 2022).  One K1 contraction a layer."""
+    al., NeurIPS 2022).  One tuple contraction a layer (K1 or K5).  The
+    type of a tuple is its diagonal flag: ``SparseTensor.diagonalapply``
+    gives per-row ids, ``MaskedTensor.diagonalapply`` a ``(b, n, n)`` int
+    mask, which ``HeteroLinear`` takes alike."""
 
     def __init__(self, indim: int, outdim: int, aggr: str = "sum",
                  pool: str = "mean", mode: str = "SS", mlp0: dict = {},

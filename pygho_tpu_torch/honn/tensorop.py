@@ -4,18 +4,11 @@
 Mode strings: the first character is the adjacency's representation, the
 second the tuples' ("SS" sparse both, "SD" sparse adjacency with dense
 tuples, "DD" dense both); the pooling, diagonal and unpooling operators
-take the tuples' character alone ("S" or "D").  Ported:
-
-- ``OpMessagePassingOnSubg2D`` in its three modes ("DD" sums only, as in
-  the JAX package) and ``OpPoolingSubg2D`` in both;
-- ``Op2FWL`` in "SS" and "DD" (sum only);
-- ``OpNodeMessagePassing``, ``OpMessagePassingCrossSubg2D``,
-  ``OpMessagePassingOnSubg3D``, ``OpDiag2D``, ``OpPoolingCrossSubg2D``,
-  ``OpPoolingSubg3D``, ``OpUnpoolingSubgNodes2D`` and
-  ``OpUnpoolingRootNodes2D`` in the sparse modes ("SS", "S").
-
-Their dense and SD modes raise ``NotImplementedError`` (``ROADMAP.md``,
-Queue A item 9)."""
+take the tuples' character alone ("S" or "D").  Every operator is ported
+in every mode the JAX package has, with its checks: "DD" message passing
+aggregates by sum only (it is an einsum or K5), "SD" and "DD" take no
+``message_func`` (the sparse mode's is not ported either), and
+``Op2FWL`` has no "SD" mode."""
 
 from __future__ import annotations
 
@@ -27,10 +20,14 @@ from . import ma_operator as MaOperator
 from . import sp_operator as SpOperator
 
 
-def _unported(op: str, mode: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{op} in mode {mode!r} is not ported yet (ROADMAP.md, Queue A "
-        f"item 9)")
+def _dense_sum_only(aggr: str) -> None:
+    if aggr != "sum":
+        raise ValueError(f"only sum aggregation for a dense adjacency, got "
+                         f"{aggr!r}")
+
+
+def _bad_mode(op: str, mode: str, modes: str) -> ValueError:
+    return ValueError(f"{op} has no mode {mode!r}; it takes {modes}")
 
 
 class OpNodeMessagePassing(nn.Module):
@@ -38,12 +35,19 @@ class OpNodeMessagePassing(nn.Module):
 
     def __init__(self, mode: str = "SS", aggr: str = "sum"):
         super().__init__()
-        if mode != "SS":
-            raise _unported("OpNodeMessagePassing", mode)
-        self.mod = SpOperator.OpNodeMessagePassing(aggr)
+        self.sparse = mode == "SS"
+        if mode == "SS":
+            self.mod = SpOperator.OpNodeMessagePassing(aggr)
+        elif mode == "SD":
+            self.mod = MaOperator.OpSpNodeMessagePassing(aggr)
+        elif mode == "DD":
+            _dense_sum_only(aggr)
+            self.mod = MaOperator.OpNodeMessagePassing()
+        else:
+            raise _bad_mode("OpNodeMessagePassing", mode, "SS, SD or DD")
 
     def forward(self, A, X):
-        return self.mod(A, X)
+        return self.mod(A, X) if self.sparse else self.mod(A, X, X)
 
 
 class Op2FWL(nn.Module):
@@ -55,68 +59,78 @@ class Op2FWL(nn.Module):
         if mode == "SS":
             self.mod = SpOperator.Op2FWL(aggr, optuplefeat)
         elif mode == "DD":
-            if aggr != "sum":
-                raise ValueError(f"only sum aggregation for dense, got "
-                                 f"{aggr!r}")
+            _dense_sum_only(aggr)
             self.mod = MaOperator.Op2FWL()
         else:
-            raise NotImplementedError(f"mode {mode!r} is not ported yet")
+            raise NotImplementedError(
+                f"Op2FWL has no mode {mode!r}: the JAX package's takes SS "
+                f"and DD only")
 
     def forward(self, X1, X2, datadict: Optional[Dict] = None, tarX=None):
         return self.mod(X1, X2, datadict, tarX)
 
 
-class OpMessagePassingOnSubg2D(nn.Module):
+class _MessagePassing(nn.Module):
+    """The dispatch of the three tuple message passings: the sparse
+    operator ``SP``, the sparse-adjacency one ``SPMA`` and the dense one
+    ``MA``."""
+
+    SP = SPMA = MA = None
+
+    def __init__(self, mode: str = "SS", aggr: str = "sum",
+                 optuplefeat: str = "X", opadj: str = "A",
+                 message_func=None):
+        super().__init__()
+        if message_func is not None:
+            raise NotImplementedError(
+                f"{type(self).__name__}: message_func is not ported "
+                f"(the JAX package's SD and DD modes take none)")
+        if mode == "SS":
+            self.mod = self.SP(aggr, optuplefeat, opadj)
+        elif mode == "SD":
+            self.mod = self.SPMA(aggr)
+        elif mode == "DD":
+            _dense_sum_only(aggr)
+            self.mod = self.MA()
+        else:
+            raise _bad_mode(type(self).__name__, mode, "SS, SD or DD")
+
+    def forward(self, A, X, datadict: Dict, tarX):
+        return self.mod(A, X, datadict, tarX)
+
+
+class OpMessagePassingOnSubg2D(_MessagePassing):
     """(reference TensorOp.py:126-187)"""
 
-    def __init__(self, mode: str = "SS", aggr: str = "sum",
-                 optuplefeat: str = "X", opadj: str = "A"):
-        super().__init__()
-        if mode == "SS":
-            self.mod = SpOperator.OpMessagePassingOnSubg2D(aggr, optuplefeat,
-                                                           opadj)
-        elif mode == "SD":
-            self.mod = MaOperator.OpSpMessagePassingOnSubg2D(aggr)
-        elif mode == "DD":
-            if aggr != "sum":
-                raise ValueError(f"only sum aggregation for a dense "
-                                 f"adjacency, got {aggr!r}")
-            self.mod = MaOperator.OpMessagePassingOnSubg2D()
-        else:
-            raise NotImplementedError(f"mode {mode!r} is not ported yet")
-
-    def forward(self, A, X, datadict: Dict, tarX):
-        return self.mod(A, X, datadict, tarX)
+    SP = SpOperator.OpMessagePassingOnSubg2D
+    SPMA = MaOperator.OpSpMessagePassingOnSubg2D
+    MA = MaOperator.OpMessagePassingOnSubg2D
 
 
-class OpMessagePassingOnSubg3D(nn.Module):
+class OpMessagePassingOnSubg3D(_MessagePassing):
     """(reference TensorOp.py:190-252)"""
 
-    def __init__(self, mode: str = "SS", aggr: str = "sum",
-                 optuplefeat: str = "X", opadj: str = "A"):
-        super().__init__()
-        if mode != "SS":
-            raise _unported("OpMessagePassingOnSubg3D", mode)
-        self.mod = SpOperator.OpMessagePassingOnSubg3D(aggr, optuplefeat,
-                                                       opadj)
-
-    def forward(self, A, X, datadict: Dict, tarX):
-        return self.mod(A, X, datadict, tarX)
+    SP = SpOperator.OpMessagePassingOnSubg3D
+    SPMA = MaOperator.OpSpMessagePassingOnSubg3D
+    MA = MaOperator.OpMessagePassingOnSubg3D
 
 
-class OpMessagePassingCrossSubg2D(nn.Module):
+class OpMessagePassingCrossSubg2D(_MessagePassing):
     """(reference TensorOp.py:255-317)"""
 
-    def __init__(self, mode: str = "SS", aggr: str = "sum",
-                 optuplefeat: str = "X", opadj: str = "A"):
-        super().__init__()
-        if mode != "SS":
-            raise _unported("OpMessagePassingCrossSubg2D", mode)
-        self.mod = SpOperator.OpMessagePassingCrossSubg2D(aggr, optuplefeat,
-                                                          opadj)
+    SP = SpOperator.OpMessagePassingCrossSubg2D
+    SPMA = MaOperator.OpSpMessagePassingCrossSubg2D
+    MA = MaOperator.OpMessagePassingCrossSubg2D
 
-    def forward(self, A, X, datadict: Dict, tarX):
-        return self.mod(A, X, datadict, tarX)
+
+def _tuple_op(name: str, mode: str, *args):
+    """``name`` of the sparse operators for mode "S", of the dense ones
+    for "D"."""
+    if mode == "S":
+        return getattr(SpOperator, name)(*args)
+    if mode == "D":
+        return getattr(MaOperator, name)(*args)
+    raise _bad_mode(name, mode, "S or D")
 
 
 class OpDiag2D(nn.Module):
@@ -124,9 +138,7 @@ class OpDiag2D(nn.Module):
 
     def __init__(self, mode: str = "S"):
         super().__init__()
-        if mode != "S":
-            raise _unported("OpDiag2D", mode)
-        self.mod = SpOperator.OpDiag2D()
+        self.mod = _tuple_op("OpDiag2D", mode)
 
     def forward(self, X):
         return self.mod(X)
@@ -137,12 +149,7 @@ class OpPoolingSubg2D(nn.Module):
 
     def __init__(self, mode: str = "S", pool: str = "sum"):
         super().__init__()
-        if mode == "S":
-            self.mod = SpOperator.OpPoolingSubg2D(pool)
-        elif mode == "D":
-            self.mod = MaOperator.OpPoolingSubg2D(pool)
-        else:
-            raise NotImplementedError(f"mode {mode!r} is not ported yet")
+        self.mod = _tuple_op("OpPoolingSubg2D", mode, pool)
 
     def forward(self, X):
         return self.mod(X)
@@ -153,11 +160,10 @@ class OpPoolingSubg3D(nn.Module):
 
     def __init__(self, mode: str = "S", pool: str = "sum", op: str = "X"):
         super().__init__()
-        if mode != "S":
-            raise _unported("OpPoolingSubg3D", mode)
-        self.mod = SpOperator.OpPoolingSubg3D(pool, op)
+        self.mod = SpOperator.OpPoolingSubg3D(pool, op) if mode == "S" \
+            else _tuple_op("OpPoolingSubg3D", mode, pool)
 
-    def forward(self, X, datadict: Dict):
+    def forward(self, X, datadict: Optional[Dict] = None):
         return self.mod(X, datadict)
 
 
@@ -166,9 +172,7 @@ class OpPoolingCrossSubg2D(nn.Module):
 
     def __init__(self, mode: str = "S", pool: str = "sum"):
         super().__init__()
-        if mode != "S":
-            raise _unported("OpPoolingCrossSubg2D", mode)
-        self.mod = SpOperator.OpPoolingCrossSubg2D(pool)
+        self.mod = _tuple_op("OpPoolingCrossSubg2D", mode, pool)
 
     def forward(self, X):
         return self.mod(X)
@@ -179,9 +183,7 @@ class OpUnpoolingSubgNodes2D(nn.Module):
 
     def __init__(self, mode: str = "S"):
         super().__init__()
-        if mode != "S":
-            raise _unported("OpUnpoolingSubgNodes2D", mode)
-        self.mod = SpOperator.OpUnpoolingSubgNodes2D()
+        self.mod = _tuple_op("OpUnpoolingSubgNodes2D", mode)
 
     def forward(self, X, tarX):
         return self.mod(X, tarX)
@@ -192,9 +194,7 @@ class OpUnpoolingRootNodes2D(nn.Module):
 
     def __init__(self, mode: str = "S"):
         super().__init__()
-        if mode != "S":
-            raise _unported("OpUnpoolingRootNodes2D", mode)
-        self.mod = SpOperator.OpUnpoolingRootNodes2D()
+        self.mod = _tuple_op("OpUnpoolingRootNodes2D", mode)
 
     def forward(self, X, tarX):
         return self.mod(X, tarX)

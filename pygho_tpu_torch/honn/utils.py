@@ -12,6 +12,7 @@ keep their statistics in f32.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, Iterable, Optional
 
@@ -57,6 +58,26 @@ def make_linear(indim: int, outdim: int, *, generator: torch.Generator,
     return lin
 
 
+# set while a checkpointed layer is recomputed in the backward pass
+# (models.MaModel(remat=True)): its norms must not move their running
+# statistics a second time
+_FROZEN_STATS = False
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Inside, every :class:`BatchNorm` in training mode normalises with
+    its batch statistics as always but leaves its running statistics as
+    they are: the recompute of a checkpointed layer, whose forward has
+    updated them once already."""
+    global _FROZEN_STATS
+    was, _FROZEN_STATS = _FROZEN_STATS, True
+    try:
+        yield
+    finally:
+        _FROZEN_STATS = was
+
+
 class BatchNorm(nn.Module):
     """Mask-aware batch normalisation over flattened leading dims
     (reference honn/utils.py:44-60; torch momentum semantics:
@@ -94,11 +115,12 @@ class BatchNorm(nn.Module):
                 cnt = m.sum().clamp_min(1.0)
                 mean = (rows * m).sum(0) / cnt
                 var = (((rows - mean) ** 2) * m).sum(0) / cnt
-            with torch.no_grad():
-                self.mean.copy_((1 - self.momentum) * self.mean
-                                + self.momentum * mean)
-                self.var.copy_((1 - self.momentum) * self.var
-                               + self.momentum * var)
+            if not _FROZEN_STATS:
+                with torch.no_grad():
+                    self.mean.copy_((1 - self.momentum) * self.mean
+                                    + self.momentum * mean)
+                    self.var.copy_((1 - self.momentum) * self.var
+                                   + self.momentum * var)
         out = (x - mean) * torch.rsqrt(var + self.eps) * self.scale \
             + self.bias
         return out.to(in_dtype)

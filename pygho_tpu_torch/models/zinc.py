@@ -1,9 +1,10 @@
 """ZINC-style HOGNN models (port of ``InputEncoderSp``, ``SpModel``,
 ``InputEncoderI2``, ``make_sp_model``, ``InputEncoderMa``, ``MaModel`` and
-``make_ma_model`` from ``pygho_tpu/models/zinc.py``; every sparse conv
-(NGNN, NGAT, SSWL, DSSGNN, GNNAK, SUN, PPGN and I2GNN), NGNN in the dense
-modes (DD, SD) and PPGN in dense mode, each in f32 or with bf16 compute
-over f32 parameters).
+``make_ma_model`` from ``pygho_tpu/models/zinc.py``): every sparse conv
+(NGNN, NGAT, SSWL, DSSGNN, GNNAK, SUN, PPGN and I2GNN); NGNN, SSWL,
+DSSGNN, GNNAK and SUN in the dense modes (DD, SD) and PPGN in dense mode,
+with ``MaModel(remat=True)``; each in f32 or with bf16 compute over f32
+parameters.
 
 ``SpModel`` takes the datadict of ``hodata.batch_to_sparse_dict``,
 ``MaModel`` that of ``hodata.batch_to_dense_dict``; both return
@@ -13,12 +14,14 @@ package's names, so ``weights.load_jax_params`` can map one onto the other.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..backend.matensor import MaskedTensor
 from ..backend.segment import segment_reduce
@@ -27,7 +30,7 @@ from ..device import DeviceLike, resolve_device
 from ..honn import conv as Conv
 from ..honn import ma_operator as MaOperator
 from ..honn import tensorop as TensorOp
-from ..honn.utils import MLP, make_linear
+from ..honn.utils import MLP, frozen_running_stats, make_linear
 
 
 def make_embedding(num: int, dim: int, *,
@@ -277,24 +280,40 @@ class InputEncoderMa(nn.Module):
         return datadict
 
 
-def _ma_convdict(aggr: str, mlp: dict, mode: str,
+def _ma_convdict(aggr: str, cpool: str, mlp: dict, mode: str,
                  generator: torch.Generator):
-    """Dense conv factories (the ported part of the JAX package's
-    ``_ma_convdict``): "DD" aggregates by sum only, "SD" by ``aggr``;
-    PPGN is dense whatever the mode."""
+    """Dense conv factories (the JAX package's ``_ma_convdict``,
+    ``models/zinc.py:133-152``): "DD" aggregates by sum only, "SD" by
+    ``aggr``; PPGN is dense whatever the mode; ``cpool`` is the
+    cross-subgraph pooling of DSSGNN, GNNAK and SUN.  I2GNN is left out:
+    :class:`MaModel` has no 3-tuple path."""
     a = aggr if mode == "SD" else "sum"
+    g = dict(generator=generator)
     return {
-        "NGNN": lambda d: Conv.NGNNConv(d, d, a, mode, mlp,
-                                        generator=generator),
-        "PPGN": lambda d: Conv.PPGNConv(d, d, a, "DD", mlp,
-                                        generator=generator),
+        "NGNN": lambda d: Conv.NGNNConv(d, d, a, mode, mlp, **g),
+        "SSWL": lambda d: Conv.SSWLConv(d, d, a, mode, mlp, **g),
+        "DSSGNN": lambda d: Conv.DSSGNNConv(d, d, a, a, cpool, mode, mlp,
+                                            **g),
+        "GNNAK": lambda d: Conv.GNNAKConv(d, d, a, cpool, mode, mlp, mlp,
+                                          **g),
+        "SUN": lambda d: Conv.SUNConv(d, d, a, cpool, mode, mlp, mlp, **g),
+        "PPGN": lambda d: Conv.PPGNConv(d, d, a, "DD", mlp, **g),
     }
+
+
+def _recompute_context():
+    """``checkpoint``'s contexts: none for the forward, frozen running
+    statistics for the recompute in the backward pass."""
+    return contextlib.nullcontext(), frozen_running_stats()
 
 
 class MaModel(nn.Module):
     """Masked-dense HOGNN for graph regression (reference
-    example/zinc.py:155-222).  The NGNN conv in "DD" and "SD" mode and
-    the PPGN conv are ported; ``remat`` raises.
+    example/zinc.py:155-222), with the NGNN, SSWL, DSSGNN, GNNAK and SUN
+    convs in "DD" and "SD" mode and the PPGN conv (dense whatever the
+    mode); ``cpool`` is the cross-subgraph pooling of DSSGNN, GNNAK and
+    SUN.  I2GNN raises ``NotImplementedError``: the JAX ``MaModel`` has no
+    3-tuple path either.
 
     ``mode="DD"`` takes the dense adjacency of ``collate_dense``, ``"SD"``
     the sparse one of ``collate_dense(denseadj=False)``.  ``dtype`` is the
@@ -302,7 +321,11 @@ class MaModel(nn.Module):
     f32 parameters, the JAX model's ``dtype``, ``--bf16`` of
     ``example/zinc_tpu.py``): the node, tuple and adjacency features are
     cast to it after the encoder, the MLPs and tuple-init layers compute in
-    it, and the prediction comes out in f32.
+    it, and the prediction comes out in f32.  ``remat=True`` checkpoints
+    each conv layer (``torch.utils.checkpoint``, non-reentrant): the
+    backward pass recomputes a layer's activations in place of keeping
+    them, with the same values (its norms' running statistics move once),
+    as the JAX model's ``nnx.remat`` does.
 
     forward(datadict) -> (num_graphs, num_tasks)
     """
@@ -317,18 +340,21 @@ class MaModel(nn.Module):
         super().__init__()
         if mode not in ("DD", "SD"):
             raise ValueError(f"mode must be 'DD' or 'SD', got {mode!r}")
-        if remat:
-            raise NotImplementedError("MaModel remat is not ported yet")
+        if conv == "I2GNN":
+            raise NotImplementedError(
+                "a dense I2GNN model has no 3-tuple path: the JAX MaModel "
+                "has none either (it fails on I2GNN in both modes); use "
+                "the sparse SpModel")
         mlp = dict(mlp or {})
         mlp.setdefault("numlayer", 1)
         mlp.setdefault("tailact", True)
         if dtype is not None:
             mlp.setdefault("dtype", dtype)
-        convdict = _ma_convdict(aggr, mlp, mode, generator)
+        convdict = _ma_convdict(aggr, cpool, mlp, mode, generator)
         if conv not in convdict:
-            raise NotImplementedError(
-                f"conv {conv!r} is not ported yet; available: "
-                f"{sorted(convdict)}")
+            raise ValueError(f"unknown conv {conv!r}; available: "
+                             f"{sorted(convdict)}")
+        self.remat = remat
         self.dtype = dtype
         self.hiddim = hiddim
         self.residual = residual
@@ -369,7 +395,11 @@ class MaModel(nn.Module):
                 A = dataclasses.replace(A, values=A.values.to(self.dtype))
         X = self.tupleinit(X, x)
         for conv in self.subggnns:
-            tX = conv(A, X, datadict)
+            if self.remat and torch.is_grad_enabled():
+                tX = checkpoint(conv, A, X, datadict, use_reentrant=False,
+                                context_fn=_recompute_context)
+            else:
+                tX = conv(A, X, datadict)
             X = X.add(tX, True) if self.residual else tX
         xm = self.lpool_op(X)
         xm = xm.tuplewiseapply(lambda v: self.poolmlp(v, xm.mask))

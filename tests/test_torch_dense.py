@@ -397,26 +397,33 @@ def test_dense_training_trajectory_matches_jax():
 
 
 def test_dense_refusals():
-    """What the dense slices do not port raises, loudly: a conv outside
-    the table, a mode other than DD and SD, ``remat``, and an aggregation
-    other than the sum on a dense adjacency."""
+    """What the dense slices refuse raises, loudly: a conv outside the
+    table (NGAT, sparse only) and the dense I2GNN (no 3-tuple path, as in
+    the JAX ``MaModel``), a mode other than DD and SD, an aggregation other
+    than the sum on a dense adjacency, and the ``MaskedTensor`` methods'
+    bad arguments (``catvalue`` of other masks, a one-dim ``diag``,
+    ``diagonalapply`` off (b, n, n))."""
     from pygho_tpu_torch.honn import tensorop
 
-    with pytest.raises(NotImplementedError, match=r"\['NGNN', 'PPGN'\]"):
-        make_ma_model("SSWL", device="cpu")
+    with pytest.raises(ValueError, match=r"\['DSSGNN', 'GNNAK', 'NGNN', "
+                       r"'PPGN', 'SSWL', 'SUN'\]"):
+        make_ma_model("NGAT", device="cpu")
+    with pytest.raises(NotImplementedError, match="3-tuple"):
+        make_ma_model("I2GNN", device="cpu")
     with pytest.raises(ValueError):
         make_ma_model("PPGN", num_layer=1, hiddim=8, mode="SS", device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_ma_model("PPGN", num_layer=1, hiddim=8, remat=True,
-                      device="cpu")
     with pytest.raises(ValueError, match="only sum"):
         tensorop.OpMessagePassingOnSubg2D("DD", "max")
     t = MaskedTensor(torch.zeros(1, 2, 2, 3), torch.ones(1, 2, 2,
                                                           dtype=torch.bool))
-    for call in (lambda: t.diag([1, 2]), lambda: t.catvalue(t, True),
-                 lambda: t.unpooling(1, t)):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        t.catvalue(t, False)
+    with pytest.raises(ValueError):
+        t.diag([1])
+    t4 = MaskedTensor(torch.zeros(1, 2, 2, 2, 3),
+                      torch.ones(1, 2, 2, 2, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        t4.diagonalapply(lambda d, e: d)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_ma_model("PPGN", num_layer=1, hiddim=8)

@@ -345,16 +345,17 @@ def test_i2conv_matches_jax(rng):
 
 
 def test_i2gnn_dense_modes_stay_unported():
-    """What stays unported raises: the 3-D operators and ``I2Conv`` in the
-    dense and SD modes (``ROADMAP.md``, Queue A item 9), the dense I2GNN
-    model, and a sparse-output max pooling."""
+    """What stays unported raises: the dense I2GNN model, in both modes
+    (the JAX ``MaModel`` has no 3-tuple path either; the 3-D operators
+    and ``I2Conv`` in the dense and SD modes are ported and build), and a
+    sparse-output max pooling."""
     mlp = {**MLPD, "numlayer": 1, "tailact": True}
     for mode in ("DD", "SD"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            pt_conv.I2Conv(8, 8, "sum", mode, mlp, **GEN)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pt_tensorop.OpPoolingSubg3D("D")
-    with pytest.raises(NotImplementedError, match="I2GNN"):
-        make_ma_model("I2GNN", num_layer=1, hiddim=8, device="cpu")
+        conv = pt_conv.I2Conv(8, 8, "sum", mode, mlp, **GEN)
+        assert type(conv.aggr.mod).__name__.endswith("OnSubg3D")
+        with pytest.raises(NotImplementedError, match="I2GNN"):
+            make_ma_model("I2GNN", num_layer=1, hiddim=8, mode=mode,
+                          device="cpu")
+    assert pt_tensorop.OpPoolingSubg3D("D").mod.dims == [3]
     with pytest.raises(NotImplementedError, match="max"):
         pt_op.OpPoolingSubg3D("max")

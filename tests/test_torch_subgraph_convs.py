@@ -386,19 +386,22 @@ def test_conv_layer_matches_jax(rng, name, train):
 
 
 def test_what_stays_unported_raises():
-    """The dense and SD modes of the new convs (``ROADMAP.md``, Queue A
-    item 9) raise ``NotImplementedError``, and so does a subgraph conv with
-    another aggregation than the sum (item 6); so do a sparse-output
-    diagonal and unpooling a SparseTensor."""
+    """A subgraph conv with another aggregation than the sum raises
+    ``NotImplementedError`` in sparse mode (``ROADMAP.md``, Queue A item
+    6), and in dense mode ``ValueError`` (a dense adjacency sums only, as
+    in the JAX package; the dense and SD modes themselves are ported);
+    ``Op2FWL`` has no SD mode; so do a sparse-output diagonal and
+    unpooling a SparseTensor raise."""
     with pytest.raises(NotImplementedError, match="aggr"):
         make_sp_model("SSWL", num_layer=1, hiddim=8, aggr="max",
                       device="cpu")
     mlp = {**MLPD, "numlayer": 1, "tailact": True}
     for mode in ("DD", "SD"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            pt_conv.SSWLConv(8, 8, "sum", mode, mlp, **GEN)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pt_conv.SUNConv(8, 8, "sum", "mean", "DD", mlp, mlp, **GEN)
+        pt_conv.SSWLConv(8, 8, "sum", mode, mlp, **GEN)
+    with pytest.raises(ValueError, match="only sum"):
+        pt_conv.SUNConv(8, 8, "max", "mean", "DD", mlp, mlp, **GEN)
+    with pytest.raises(NotImplementedError, match="SS and DD"):
+        pt_conv.PPGNConv(8, 8, "sum", "SD", mlp, **GEN)
     with pytest.raises(NotImplementedError):
         pt_op.OpDiag([0, 1], return_sparse=True)
     with pytest.raises(NotImplementedError):

@@ -386,8 +386,8 @@ def test_zinc_gpu_reads_the_real_zinc_layout(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--sparse", "--conv", "I2GNN", "--aggr", "mean"], "item 6"),
-    (["--conv", "GNNAK"], "item 9"),
-    (["--conv", "SSWL"], "item 9"),
+    (["--conv", "GNNAK", "--chained"], "item 4"),
+    (["--conv", "SSWL", "--ddp", "2"], "item 12"),
     (["--sparse", "--aggr", "mean"], "item 6"),
     (["--sparse", "--conv", "NGAT", "--aggr", "max"], "item 8"),
     (["--sparse", "--lpool", "max"], "item 6"),
@@ -395,7 +395,7 @@ def test_zinc_gpu_reads_the_real_zinc_layout(tmp_path):
     (["--norm", "ln"], "item 6"),
     (["--dp", "0.1"], "item 6"),
     (["--sparse", "--remat"], "item 6"),
-    (["--remat"], "item 9"),
+    (["--conv", "SUN", "--norm", "none"], "item 6"),
     (["--sparse", "--ddp", "2"], "item 12"),
     (["--sparse", "--chained"], "item 4"),
     (["--sparse", "--fused", "--plan-measure"], "item 10"),
@@ -420,7 +420,8 @@ def test_zinc_gpu_refuses_as_the_jax_script(argv, capsys):
 
 def test_zinc_gpu_accepts_what_the_ported_convs_ignore():
     """As in JAX, the DD mode aggregates by sum whatever ``--aggr`` says,
-    and ``--cpool`` reaches no ported dense conv: both parse."""
+    and ``--cpool`` reaches only the dense DSSGNN, GNNAK and SUN (NGNN's
+    dense model ignores it): both parse."""
     args = zinc_gpu.parse_args(["--conv", "NGNN", "--aggr", "max",
                                 "--cpool", "sum"])
     assert zinc_gpu.refusal(args) is None
